@@ -5,12 +5,12 @@ Runs the executing reference (/root/reference) EKF and PF demos headless
 for N independent seeds and records per-seed summary statistics into
 ``tests/fixtures/ref_distributions.json``.  The committed fixture is the
 ground truth for ``tests/test_distributional.py`` (SURVEY.md §4.2's
-"*distributional* match ... RMSE/NEES ... over N seeded rollouts" clause,
-VERDICT r3 item 4): numpy MT19937 cannot be bit-matched from JAX, so
+"*distributional* match ... RMSE/NEES ... over N seeded rollouts"
+clause): numpy MT19937 cannot be bit-matched from JAX, so
 fidelity at the statistics level is asserted against bands measured from
 the reference itself, not from the hand-written oracles.
 
-Statistics (identical formulas on the tpuslam side):
+Statistics (identical formulas on the slamsim side):
   EKF (120 steps, seed-per-run):
     rmse_pos   sqrt(mean_t ||x_pre[t,:2] - x_true[t,:2]||^2)
                (x_pre is what main_ekf returns/plots,
@@ -24,21 +24,21 @@ Statistics (identical formulas on the tpuslam side):
     mean_ess_frac  mean_t ESS(pw_t)/NP of the post-step weights (the next
                step's gate input, :200-224)
 
-  Graph SLAM (18-frame demo course + a 6-frame fast prefix,
-  VERDICT r4 item 4 - the native-key noise wiring of slam_rollout is
-  exactly what the recorded-draw replay tests bypass):
+  Graph SLAM (18-frame demo course + a 6-frame fast prefix - the
+  native-key noise wiring of slam_rollout is exactly what the
+  recorded-draw replay tests bypass):
     rmse_pos       final-course sqrt(mean ||est - actual||^2 over
                    positions at OBSERVED times) - the poses the
                    reference plots (graph_based_slam.py:441-449)
     total_gn_iters sum over frames of the GN loop count
                    (graph_based_slam.py:706-711), per-frame capped at
-                   GraphConfig.max_gn_iters to match the tpuslam cap
+                   GraphConfig.max_gn_iters to match the slamsim cap
     calc_failures  frames whose det/cond guard failed (isCalc False)
 
 Usage: python scripts/gen_ref_distributions.py [N_SEEDS] [--sections a,b]
 (~5-10 min for the PF side; run once, commit the fixture.)
 ``--sections ekf,pf,graph`` regenerates only the named sections and
-merges them into the existing fixture; the tpuslam config snapshot
+merges them into the existing fixture; the slamsim config snapshot
 (``gen_config``, asserted fresh by test_distributional.py) is always
 refreshed.
 """
@@ -201,18 +201,18 @@ def run_graph_seed(gbs_mod, seed, n_frames):
             "calc_failures": failures}
 
 
-def tpuslam_config_snapshot():
-    """Snapshot of the tpuslam configs the distributional test runs with.
+def slamsim_config_snapshot():
+    """Snapshot of the slamsim configs the distributional test runs with.
 
     Committed into the fixture and asserted equal to the LIVE defaults by
     test_distributional.py::test_fixture_config_is_fresh - a default
     drift (noise stds, NP, course geometry) invalidates the bands loudly
-    instead of silently (VERDICT r4 item 7).
+    instead of silently.
     """
     from dataclasses import asdict
 
-    from tpuslam.filters import EkfConfig, PfConfig
-    from tpuslam.slam import SlamSceneConfig, reference_course_config
+    from slamsim.filters import EkfConfig, PfConfig
+    from slamsim.slam import SlamSceneConfig, reference_course_config
 
     snap = {
         "ekf": asdict(EkfConfig()),
@@ -272,7 +272,7 @@ def main():
             fixture[name + "_rows"] = rows
             fixture[name + "_frames"] = frames
 
-    fixture["gen_config"] = tpuslam_config_snapshot()
+    fixture["gen_config"] = slamsim_config_snapshot()
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(fixture, indent=1))
     print(f"wrote {OUT}")

@@ -2,10 +2,10 @@
 # Full test tier, one pytest process per module.
 #
 # The whole-suite single-process run compiles many hundreds of distinct
-# XLA:CPU programs and the compiler eventually segfaults inside
-# backend_compile_and_load (observed round 5: crash site moves between
-# merge-kernel tests with accumulated compile count; every module passes
-# in isolation; jax.clear_caches() between modules does not prevent it).
+# XLA:CPU programs and the compiler has been seen to segfault inside
+# backend_compile_and_load (the crash site moved with the accumulated
+# compile count; every module passed in isolation; jax.clear_caches()
+# between modules did not prevent it).
 # Per-module processes bound the compiler state and make the full tier
 # deterministic.  The smoke tier (-m "not slow") stays single-process.
 set -u
@@ -24,9 +24,8 @@ run_chunk() {
 EXTRA_ARGS=("$@")
 for f in tests/test_*.py; do
     if [ "$(grep -c '^class Test' "$f")" -ge 8 ]; then
-        # Compile-heavy modules (test_ops: ~90 interpret-mode Pallas
-        # tests) cross the compiler-state threshold even alone — split
-        # those per class.
+        # Compile-heavy modules cross the compiler-state threshold even
+        # alone — split those per class.
         for cls in $(grep -o '^class Test[A-Za-z0-9_]*' "$f" \
                      | sed 's/^class //'); do
             run_chunk "$f::$cls"

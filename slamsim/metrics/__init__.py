@@ -1,0 +1,8 @@
+"""Device-side metrics: RMSE, NEES, ESS, divergence masks."""
+
+from slamsim.metrics.metrics import (divergence_mask, nees,
+                                     nees_consistency, position_rmse,
+                                     summarize_rollouts, yaw_rmse)
+
+__all__ = ["divergence_mask", "nees", "nees_consistency", "position_rmse",
+           "summarize_rollouts", "yaw_rmse"]

@@ -1,4 +1,4 @@
-"""Unit tests for tpuslam.core (SURVEY.md section 4, item 1)."""
+"""Unit tests for slamsim.core (SURVEY.md section 4, item 1)."""
 
 import numpy as np
 import jax
@@ -6,7 +6,7 @@ import jax.numpy as jnp
 from scipy import stats
 
 import oracles
-from tpuslam.core import (BASE_ANG, chi2_ppf_2dof, chi2_ppf_2dof_table,
+from slamsim.core import (BASE_ANG, chi2_ppf_2dof, chi2_ppf_2dof_table,
                           error_ellipse, robot_to_world, world_to_robot,
                           wrap_angle, wrap_angle_fast)
 

@@ -7,7 +7,7 @@ measured from the executing reference.  The bands live in
 ``tests/fixtures/ref_distributions.json``, generated once by
 ``scripts/gen_ref_distributions.py`` (100 seeds through the live
 /root/reference EKF and PF with the mlab shim); this test recomputes the
-SAME statistics from tpuslam rollouts with jax.random keys and compares:
+SAME statistics from slamsim rollouts with jax.random keys and compares:
 
   * means via a two-sample z-style bound
     |m_ours - m_ref| <= K * sqrt((s_ref^2 + s_ours^2) / N)
@@ -72,7 +72,7 @@ def wrap(a):
 class TestEkfDistributional:
 
     def test_rmse_and_nees_bands(self, bands):
-        from tpuslam.filters import EkfConfig, ekf_rollout_batch
+        from slamsim.filters import EkfConfig, ekf_rollout_batch
 
         n_seeds = bands["n_seeds"]
         n_steps = bands["ekf_steps"]
@@ -97,7 +97,7 @@ class TestEkfDistributional:
 class TestPfDistributional:
 
     def test_rmse_fires_and_ess_bands(self, bands):
-        from tpuslam.filters import (PfConfig, effective_sample_size,
+        from slamsim.filters import (PfConfig, effective_sample_size,
                                      pf_rollout_batch)
 
         n_seeds = bands["n_seeds"]
@@ -128,7 +128,7 @@ class TestPfDistributional:
 def _graph_course_stats(section, bands, n_seeds_ours):
     """Run slam_rollout's key-driven course for ``n_seeds_ours`` seeds and
     compare rmse/iteration/guard statistics against the live-reference
-    bands (VERDICT r4 item 4 - the native noise wiring of
+    bands (the native noise wiring of
     slam/frontend.py::simulate, scales / frames / scan-vs-motion key
     splits, is exactly what the recorded-draw replay tests bypass).
 
@@ -138,7 +138,7 @@ def _graph_course_stats(section, bands, n_seeds_ours):
     count (capped at max_gn_iters on BOTH sides), det/cond guard
     failures (graph_based_slam.py:496).
     """
-    from tpuslam.slam import (SlamSceneConfig, observed_times_mask,
+    from slamsim.slam import (SlamSceneConfig, observed_times_mask,
                               reference_course_config, slam_rollout)
 
     n_frames = bands[section + "_frames"]
@@ -193,7 +193,7 @@ class TestGraphDistributionalFast:
 class TestFixtureFreshness:
     """The bands are only valid for the configs they were generated
     against: assert the committed snapshot equals the LIVE defaults so a
-    default drift invalidates the fixture loudly (VERDICT r4 item 7).
+    default drift invalidates the fixture loudly.
     Regenerate with ``python scripts/gen_ref_distributions.py``."""
 
     def test_fixture_config_is_fresh(self, bands):
@@ -206,7 +206,7 @@ class TestFixtureFreshness:
             "gen_ref_distributions.py")
         gen = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(gen)
-        live = gen.tpuslam_config_snapshot()
+        live = gen.slamsim_config_snapshot()
         assert "gen_config" in bands, (
             "fixture predates the config snapshot - regenerate it: "
             "python scripts/gen_ref_distributions.py")

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 
 import oracles
-from tpuslam.filters import (EkfConfig, ekf_init, ekf_predict, ekf_rollout,
+from slamsim.filters import (EkfConfig, ekf_init, ekf_predict, ekf_rollout,
                              ekf_rollout_batch, ekf_step, ekf_update)
-from tpuslam.filters.ekf import ekf_step_with_noise
+from slamsim.filters.ekf import ekf_step_with_noise
 
 
 CFG = EkfConfig()

@@ -10,12 +10,11 @@ import pytest
 import numpy as np
 import jax
 
-from tpuslam.filters import EkfConfig, PfConfig, ekf_rollout, pf_rollout
+from slamsim.filters import EkfConfig, PfConfig, ekf_rollout, pf_rollout
 
 # Goldens generated on the CPU backend (jax 0.9.0, f32); regenerate with
 # print(repr(_digest(...))) if a deliberate numeric change lands.
 PF_GOLDEN = [4.986, 3.183, 9.987, 2.469]
-PF_FUSED_GOLDEN = [4.456, 3.823, 10.0, 1.92]
 GRAPH_GOLDEN = [2.847, 5.04, 10.0, 0.47]
 
 
@@ -67,26 +66,11 @@ class TestGolden:
         np.testing.assert_allclose(d, want, atol=2e-3)
         assert np.all(np.abs(np.asarray(outs.x_est)[:, :2]) < 20.0)
 
-    def test_pf_fused_interpret_golden(self):
-        """Fused-kernel PF rollout, interpret mode (noise_on=False keeps
-        the kernel path liftable on CPU: pltpu.prng_* has no interpret
-        lowering).  Pins the Pallas kernel's numerics, not just XLA's."""
-        from tpuslam.ops.pf_pallas import pf_fused_rollout
-
-        cfg = PfConfig(num_particles=256, weight_mode="log")
-        _, (x_true, x_est) = jax.jit(
-            lambda k: pf_fused_rollout(cfg, k, 20, noise_on=False,
-                                       interpret=True, tile_n=256))(
-            jax.random.key(1234))
-        d = _digest(x_est)
-        want = PF_FUSED_GOLDEN
-        np.testing.assert_allclose(d, want, atol=2e-3)
-
     @pytest.mark.slow
     def test_graph_slam_golden(self):
-        from tpuslam.slam import (GraphConfig, SlamSceneConfig,
+        from slamsim.slam import (GraphConfig, SlamSceneConfig,
                                   slam_rollout)
-        from tpuslam.models.scan_sensor import ScanConfig
+        from slamsim.models.scan_sensor import ScanConfig
         import math
 
         cfg = GraphConfig(

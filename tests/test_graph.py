@@ -9,11 +9,11 @@ import jax
 import jax.numpy as jnp
 
 import oracles
-from tpuslam.models.scan_sensor import ScanConfig
-from tpuslam.slam import (GraphConfig, GraphObservations, SlamSceneConfig,
+from slamsim.models.scan_sensor import ScanConfig
+from slamsim.slam import (GraphConfig, GraphObservations, SlamSceneConfig,
                           gn_iteration, graph_solve, kept_times, simulate,
                           slam_rollout, solve_once, upper_pairs)
-from tpuslam.slam.graph import _inv3x3, preconditioned_solve
+from slamsim.slam.graph import _inv3x3, preconditioned_solve
 
 
 def _demo_cfg(t1):

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tpuslam.metrics import (divergence_mask, nees, nees_consistency,
+from slamsim.metrics import (divergence_mask, nees, nees_consistency,
                              position_rmse, summarize_rollouts, yaw_rmse)
 
 

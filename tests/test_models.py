@@ -1,4 +1,4 @@
-"""Unit tests for tpuslam.models (SURVEY.md section 4, item 1)."""
+"""Unit tests for slamsim.models (SURVEY.md section 4, item 1)."""
 
 import math
 
@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import pytest
 
 import oracles
-from tpuslam.models import (MotionConfig, ScanConfig, circular_jacobian,
+from slamsim.models import (MotionConfig, ScanConfig, circular_jacobian,
                             circular_step, cov_measurement_to_robot,
                             cov_measurement_to_world, landmark_observation,
                             measurement_cov, motion_mean, motion_sample,

@@ -1,1292 +1,138 @@
-"""Pallas kernel tests (interpret mode on the CPU mesh; the real-TPU
-compile/bench path is exercised by bench.py on hardware)."""
+"""The fused EKF kernel in the Pallas interpreter, and its generator.
+
+The kernel lowers through Triton on the GPU; here it runs with
+``interpret=True``, which checks its arithmetic, layout, padding and
+noise streams.  What the GPU compiler makes of it is checked by
+``chip_smoke.py`` (tests/test_chip_smoke.py runs the same checks on a
+GPU when one is present).
+"""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+from jax.extend.random import threefry_2x32
 
-from tpuslam.filters import EkfConfig, ekf_init, ekf_step_with_noise
-from tpuslam.ops import ekf_fused_rollout
+from slamsim.filters import EkfConfig
+from slamsim.ops import ekf_fused_rollout, rng
+from slamsim.ops.ekf_pallas import launch_shape
 
+import chip_smoke
 
 CFG = EkfConfig()
 
 
-pytestmark = pytest.mark.slow  # interpret-mode Pallas / multi-device suites: run in the full tier only
+def _u32(x):
+    return jax.lax.bitcast_convert_type(jnp.asarray(x, jnp.int32),
+                                        jnp.uint32)
+
+
+def _i32(x):
+    return jax.lax.bitcast_convert_type(jnp.asarray(x, jnp.uint32),
+                                        jnp.int32)
 
 
 class TestEkfFusedKernel:
-    def test_noise_free_matches_scan_path_exactly(self):
-        """With noise off, the fused kernel must reproduce the XLA scan
-        path step-for-step (same f32 math, same order)."""
-        n = 25
-        final, err = ekf_fused_rollout(CFG, 0, batch=8, n_steps=n,
-                                       tile_b=8, noise_on=False,
+    @pytest.mark.parametrize("batch", [64, 37])
+    def test_noise_free_matches_scan_path(self, batch):
+        """Noise off: every rollout equals the XLA scan oracle - a whole
+        number of blocks and a ragged batch padded to one."""
+        diffs = chip_smoke.ekf_noise_free(batch=batch, n_steps=25,
+                                          interpret=True, atol=1e-6)
+        assert diffs["err"] == 0.0
+
+    def test_noise_on_inside_reference_bands(self):
+        """Noise on, 512 rollouts x the fixture's 120 steps: the kernel's
+        and the scan's RMSE and NEES inside the reference's bands."""
+        out = chip_smoke.ekf_bands(batch=512, interpret=True)
+        assert set(out) == {"kernel_rmse", "kernel_nees", "xla_rmse",
+                            "xla_nees"}
+
+    def test_rollout_stream_independent_of_batch(self):
+        """Rollout i draws the stream of (seed, first_index + i): a slice
+        of a batch equals the same rollouts run on their own."""
+        whole, err = ekf_fused_rollout(CFG, 9, batch=96, n_steps=6,
                                        interpret=True)
-        state = ekf_init(CFG)
-        for _ in range(n):
-            state, _ = ekf_step_with_noise(CFG, state, jnp.zeros(2),
-                                           jnp.zeros(3))
-        np.testing.assert_allclose(np.asarray(final.x_hat[0]),
-                                   np.asarray(state.x_hat), atol=1e-6)
-        np.testing.assert_allclose(np.asarray(final.x_true[0]),
-                                   np.asarray(state.x_true), atol=1e-6)
-        np.testing.assert_allclose(np.asarray(final.cov[0]),
-                                   np.asarray(state.cov), atol=1e-6)
+        part, perr = ekf_fused_rollout(CFG, 9, batch=40, n_steps=6,
+                                       interpret=True, first_index=50)
+        np.testing.assert_array_equal(np.asarray(whole.x_hat[50:90]),
+                                      np.asarray(part.x_hat))
+        np.testing.assert_array_equal(np.asarray(err[50:90]),
+                                      np.asarray(perr))
 
-    def test_error_accumulator_noise_free(self):
-        """Noise-free: estimate==truth after convergence... the
-        accumulator equals the scan-path squared error (= 0 here since
-        x_hat starts at truth and follows the same deterministic orbit)."""
-        _, err = ekf_fused_rollout(CFG, 0, batch=8, n_steps=10, tile_b=8,
-                                   noise_on=False, interpret=True)
-        np.testing.assert_allclose(np.asarray(err), 0.0, atol=1e-8)
-
-    def test_batch_tiling(self):
-        """Multiple grid tiles produce the same per-tile deterministic
-        result as a single tile in the noise-free path."""
-        f1, _ = ekf_fused_rollout(CFG, 0, batch=16, n_steps=5, tile_b=8,
-                                  noise_on=False, interpret=True)
-        f2, _ = ekf_fused_rollout(CFG, 0, batch=8, n_steps=5, tile_b=8,
-                                  noise_on=False, interpret=True)
-        np.testing.assert_allclose(np.asarray(f1.x_hat[12]),
-                                   np.asarray(f2.x_hat[0]), atol=1e-6)
-
-    def test_nees_accumulator_plumbing(self):
-        """with_nees returns the third accumulator; noise-free the
-        estimate equals truth so both accumulators are exactly zero
-        (the statistical NEES~2 band is checked on real hardware by
-        scripts/tpu_validate.py)."""
-        final, err, nees = ekf_fused_rollout(CFG, 0, batch=8, n_steps=10,
-                                             tile_b=8, noise_on=False,
-                                             interpret=True,
-                                             with_nees=True)
-        assert nees.shape == (8,)
-        np.testing.assert_allclose(np.asarray(err), 0.0, atol=1e-8)
-        np.testing.assert_allclose(np.asarray(nees), 0.0, atol=1e-8)
-
-    def test_bad_tile_raises(self):
-        with pytest.raises(ValueError):
-            ekf_fused_rollout(CFG, 0, batch=100, n_steps=5, tile_b=64,
-                              interpret=True)
-
-    def test_multi_sweep_batching(self):
-        """ekf_fused_sweeps stacks K sweeps into one program; per-sweep
-        RMSE reduces over exactly that sweep's rollout slice (noise-free:
-        every sweep's slice equals the single-call rollout and RMSE=0)."""
-        from tpuslam.ops import ekf_fused_sweeps
-
-        final, rmse = ekf_fused_sweeps(CFG, 0, n_sweeps=3, batch=8,
-                                       n_steps=5, tile_b=8,
-                                       noise_on=False, interpret=True)
-        assert rmse.shape == (3,)
-        assert final.x_hat.shape == (24, 3)
-        np.testing.assert_allclose(np.asarray(rmse), 0.0, atol=1e-8)
-        one, _ = ekf_fused_rollout(CFG, 0, batch=8, n_steps=5, tile_b=8,
-                                   noise_on=False, interpret=True)
-        np.testing.assert_allclose(np.asarray(final.x_hat[16:24]),
-                                   np.asarray(one.x_hat), atol=1e-6)
-
-
-class TestPfFusedKernel:
-    def test_noise_free_matches_xla_path(self, rng):
-        from tpuslam.filters.pf import PfConfig, pf_likelihood
-        from tpuslam.models.process import circular_step
-        from tpuslam.ops.pf_pallas import pf_fused_predict_weight
-
-        cfg = PfConfig(num_particles=64, weight_mode="log")
-        particles = jnp.asarray(
-            rng.normal(size=(64, 3)) * 0.3 + np.array([10.0, 0.0,
-                                                       np.pi / 2]),
-            jnp.float32)
-        log_w = jnp.full((64,), -np.log(64.0), jnp.float32)
-        z = jnp.asarray(rng.normal(size=(5, 2)) + [0.0, 10.0],
-                        jnp.float32)
-        p2, lw2 = pf_fused_predict_weight(cfg, 0, particles, log_w, z,
-                                          tile_n=64, noise_on=False,
-                                          interpret=True)
-        p_want = circular_step(particles, cfg.vel, cfg.yaw_rate, cfg.dt)
-        lw_want = log_w + pf_likelihood(cfg, p_want, z)
-        np.testing.assert_allclose(np.asarray(p2), np.asarray(p_want),
-                                   atol=1e-6)
-        # Accumulation-order differences across landmark terms: lsb-level
-        # for magnitudes ~1e2-1e3.
-        np.testing.assert_allclose(np.asarray(lw2), np.asarray(lw_want),
-                                   atol=5e-3)
-
-    def test_tiling(self, rng):
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops.pf_pallas import pf_fused_predict_weight
-
-        cfg = PfConfig(num_particles=128, weight_mode="log")
-        particles = jnp.asarray(rng.normal(size=(128, 3)), jnp.float32)
-        log_w = jnp.zeros((128,), jnp.float32)
-        z = jnp.zeros((5, 2), jnp.float32)
-        p_a, lw_a = pf_fused_predict_weight(cfg, 0, particles, log_w, z,
-                                            tile_n=64, noise_on=False,
-                                            interpret=True)
-        p_b, lw_b = pf_fused_predict_weight(cfg, 0, particles, log_w, z,
-                                            tile_n=128, noise_on=False,
-                                            interpret=True)
-        np.testing.assert_allclose(np.asarray(p_a), np.asarray(p_b),
-                                   atol=1e-6)
-        np.testing.assert_allclose(np.asarray(lw_a), np.asarray(lw_b),
-                                   atol=1e-5)
-
-    def test_fused_rollout_interpret(self):
-        """Full fused rollout (interpret, noise-free kernel): runs and the
-        estimate tracks the deterministic truth orbit."""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops.pf_pallas import pf_fused_rollout
-
-        cfg = PfConfig(num_particles=64, weight_mode="log")
-        final, (x_true, x_est) = pf_fused_rollout(
-            cfg, jax.random.key(0), 10, noise_on=False, interpret=True)
-        assert x_true.shape == (10, 3)
-        assert np.isfinite(np.asarray(x_est)).all()
-
-
-class TestPfStatsKernel:
-    """In-kernel reductions (logsumexp / ESS / MAP) vs XLA oracles."""
-
-    def _run(self, rng, n, tile_n, flag=0.0):
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops.pf_pallas import (pf_fused_predict_weight,
-                                           pf_fused_predict_weight_stats)
-
-        cfg = PfConfig(num_particles=n, weight_mode="log")
-        particles = jnp.asarray(
-            rng.normal(size=(n, 3)) * 0.3 + np.array([10.0, 0.0,
-                                                      np.pi / 2]),
-            jnp.float32)
-        log_w = jnp.asarray(rng.normal(size=(n,)), jnp.float32)
-        z = jnp.asarray(rng.normal(size=(5, 2)) + [0.0, 10.0], jnp.float32)
-        p2, lw2, stats = pf_fused_predict_weight_stats(
-            cfg, 0, flag, particles, log_w, z, tile_n=tile_n,
-            noise_on=False, interpret=True)
-        lw_in = jnp.zeros_like(log_w) if flag > 0 else log_w
-        p_ref, lw_ref = pf_fused_predict_weight(
-            cfg, 0, particles, lw_in, z, tile_n=tile_n, noise_on=False,
-            interpret=True)
-        return p2, lw2, stats, p_ref, lw_ref
-
-    @pytest.mark.parametrize("n,tile_n", [(64, 64), (192, 64), (100, 64)])
-    def test_stats_match_xla(self, rng, n, tile_n):
-        """Multi-tile and padded-tail cases: lse, lse2, MAP all match."""
-        p2, lw2, stats, p_ref, lw_ref = self._run(rng, n, tile_n)
-        np.testing.assert_allclose(np.asarray(p2), np.asarray(p_ref),
-                                   atol=1e-6)
-        np.testing.assert_allclose(np.asarray(lw2), np.asarray(lw_ref),
-                                   atol=1e-5)
-        lse = jax.scipy.special.logsumexp(lw2)
-        lse2 = jax.scipy.special.logsumexp(2.0 * lw2)
-        np.testing.assert_allclose(float(stats[0]), float(lse), atol=1e-4)
-        np.testing.assert_allclose(float(stats[1]), float(lse2), atol=1e-4)
-        idx = int(jnp.argmax(lw2))
-        np.testing.assert_allclose(np.asarray(stats[2:5]),
-                                   np.asarray(p2[idx]), atol=1e-6)
-        np.testing.assert_allclose(float(stats[5]), float(lw2[idx]),
-                                   atol=1e-5)
-
-    def test_uniform_flag_resets_weights(self, rng):
-        """flag > 0 must behave as if incoming log weights were zeros."""
-        _, lw2, stats, _, lw_ref = self._run(rng, 128, 64, flag=1.0)
-        np.testing.assert_allclose(np.asarray(lw2), np.asarray(lw_ref),
-                                   atol=1e-5)
-
-    def test_step_stats_resample_branch(self, rng):
-        """Skewed weights trip the ESS gate: the step must resample (all
-        surviving particles drawn from the high-weight support) and reset
-        to uniform weights before the kernel update."""
-        from tpuslam.filters.pf import PfConfig, pf_init
-        from tpuslam.ops.pf_pallas import (pf_fused_init,
-                                           pf_fused_step_stats)
-
-        n = 100  # exercises the padded-lanes path too (tile 64 -> 128)
-        cfg = PfConfig(num_particles=n, weight_mode="log",
-                       resample_method="hist",
-                       ess_threshold_frac=0.5)
-        state = pf_init(cfg)
-        # Scatter particles; give all weight to the last 5.
-        parts = jnp.asarray(
-            rng.normal(size=(n, 3)) + np.array([10.0, 0.0, np.pi / 2]),
-            jnp.float32)
-        w = jnp.full((n,), 1e-12)
-        w = w.at[-5:].set(0.2)
-        w = w / jnp.sum(w)
-        fs = pf_fused_init(cfg, state._replace(particles=parts,
-                                               weights=w), tile_n=64)
-        fs2, ess = pf_fused_step_stats(cfg, fs, jax.random.key(0), 0,
-                                       noise_on=False, interpret=True)
-        assert float(ess) < n * cfg.ess_threshold_frac  # gate tripped
-        # With no process noise the resampled particles must be copies of
-        # the 5 heavy particles, advanced one deterministic step.
-        from tpuslam.models.process import circular_step
-
-        heavy = circular_step(parts[-5:], cfg.vel, cfg.yaw_rate, cfg.dt)
-        out = np.asarray(fs2.particles[:, :n].T)
-        d = np.abs(out[:, None, :] - np.asarray(heavy)[None]).sum(-1)
-        assert d.min(axis=1).max() < 1e-5
-        # Padded lanes stay -inf in the carried log weights.
-        assert np.all(np.asarray(fs2.log_w[0, n:]) == -np.inf)
-
-    def test_step_stats_matches_pf_step_noise_free(self):
-        """Fused step (stats path) vs XLA pf_step on the same noise-free
-        inputs: same particles, weights, ESS, and MAP estimate."""
-        from tpuslam.filters.pf import PfConfig, pf_init
-        from tpuslam.ops.pf_pallas import (pf_fused_init,
-                                           pf_fused_step_stats,
-                                           pf_fused_to_state)
-
-        cfg = PfConfig(num_particles=64, weight_mode="log")
-        # Noise-free kernel vs pf_step with zeroed noise: build the same
-        # observation by reusing one key and disabling particle noise.
-        state = pf_init(cfg)
-        fs = pf_fused_init(cfg, state)
-        key = jax.random.key(3)
-        # pf_step draws (k_rs, k_pred, k_obs); the fused path draws
-        # (k_rs, k_obs) - match by running each and comparing only the
-        # deterministic parts (truth propagation + likelihood given z).
-        fs2, ess = pf_fused_step_stats(cfg, fs, key, 0, noise_on=False,
-                                       interpret=True)
-        st2 = pf_fused_to_state(cfg, fs2)
-        assert np.isfinite(np.asarray(st2.weights)).all()
-        np.testing.assert_allclose(float(jnp.sum(st2.weights)), 1.0,
-                                   rtol=1e-5)
-        np.testing.assert_allclose(float(ess), 64.0, rtol=1e-5)
-        # All particles identical (no noise, same start): estimate is the
-        # propagated particle.
-        np.testing.assert_allclose(np.asarray(fs2.x_est),
-                                   np.asarray(st2.particles[0]), atol=1e-6)
-
-
-class TestMergeResampleKernel:
-    """Two-pass Pallas merge resample vs the shared-t XLA decode oracle
-    (ops/resample_pallas.py; selection must be bit-identical to the
-    "hist" method of filters/pf.py::resample_indices)."""
-
-    @staticmethod
-    def _oracle(key, p_rows, w_row, n):
-        from tpuslam.ops.resample_pallas import (decode_indices,
-                                                 slot_boundaries)
-
-        offs = jax.random.uniform(key, dtype=jnp.float32)
-        idx = decode_indices(slot_boundaries(w_row, n, offs), n)
-        return jnp.zeros_like(p_rows).at[:, :n].set(
-            p_rows[:, :n][:, idx])
-
-    @staticmethod
-    def _weights(rng, n, n_pad, scale):
-        lw = rng.normal(size=n_pad) * scale
-        lw[n:] = -np.inf
-        w = np.exp(lw - lw[:n].max())
-        w /= w.sum()
-        w[n:] = 0.0
-        return jnp.asarray(w, jnp.float32)[None, :]
-
-    @pytest.mark.parametrize("n,n_pad,scale", [
-        (1000, 1024, 8.0),   # degenerate weights (the gate-firing regime)
-        (900, 1024, 0.1),    # near-uniform (dense survivors)
-        (5000, 8192, 8.0),   # multi-tile with padded tail
-    ])
-    def test_matches_hist_decode_exactly(self, rng, n, n_pad, scale):
-        from tpuslam.ops import merge_resample_rows
-
-        w_row = self._weights(rng, n, n_pad, scale)
-        p = jnp.asarray(rng.normal(size=(3, n_pad)), jnp.float32)
-        key = jax.random.key(n)
-        out = merge_resample_rows(key, p, w_row, n, t_in=1024, t_k=1024,
-                                  t_out=1024, w_b=3, interpret=True)
-        ref = self._oracle(key, p, w_row, n)
-        assert bool(jnp.all(out == ref))
-
-    def test_single_survivor(self, rng):
-        """All mass on one particle: every output is that particle."""
-        from tpuslam.ops import merge_resample_rows
-
-        n, n_pad = 1000, 1024
-        w = np.zeros(n_pad, np.float32)
-        w[377] = 1.0
-        w_row = jnp.asarray(w)[None]
-        p = jnp.asarray(rng.normal(size=(3, n_pad)), jnp.float32)
-        key = jax.random.key(0)
-        out = merge_resample_rows(key, p, w_row, n, t_in=256, t_k=256,
-                                  t_out=256, w_b=2, interpret=True)
-        assert bool(jnp.all(out[:, :n] == p[:, 377:378]))
-        assert bool(jnp.all(out[:, n:] == 0.0))
-
-    def test_fallback_paths_match(self, rng):
-        """Static caps exceeded (uniform weights -> ~N survivors): both
-        the compact-cap and window-cap fallbacks must still produce the
-        exact decode result."""
-        from tpuslam.ops import merge_resample_rows
-
-        n, n_pad = 1000, 1024
-        w = np.zeros(n_pad, np.float32)
-        w[:n] = 1.0 / n
-        w_row = jnp.asarray(w)[None]
-        p = jnp.asarray(rng.normal(size=(3, n_pad)), jnp.float32)
-        key = jax.random.key(1)
-        ref = self._oracle(key, p, w_row, n)
-        # t_k too small for ~250 survivors/tile -> pass-1 fallback.
-        out = merge_resample_rows(key, p, w_row, n, t_in=256, t_k=128,
-                                  t_out=256, w_b=4, interpret=True)
-        assert bool(jnp.all(out == ref))
-        # w_b too small for multi-block survivor windows -> pass-2
-        # fallback.
-        out = merge_resample_rows(key, p, w_row, n, t_in=256, t_k=256,
-                                  t_out=256, w_b=1, interpret=True)
-        assert bool(jnp.all(out == ref))
-
-    @pytest.mark.parametrize("pattern", [
-        "clustered",    # all survivors in one input tile (skips whole
-                        # tiles; exercises empty-block compression)
-        "exact_full",   # survivor counts hitting exact wb2 multiples
-                        # (full window blocks followed by empty ones)
-        "alternating",  # every other input tile empty
-    ])
-    def test_skip_table_patterns(self, rng, pattern):
-        """Adversarial survivor layouts for the skip-table walk: the
-        compressed block list must preserve boundary continuity across
-        skipped (empty / exactly-full) window blocks."""
-        from tpuslam.ops import merge_resample_rows
-
-        n = n_pad = 2048
-        t_in = 256  # t_k=256 -> wb2=128, two window blocks per tile
-        w = np.zeros(n_pad, np.float64)
-        if pattern == "clustered":
-            w[512:520] = 1.0       # 8 survivors, one tile
-        elif pattern == "exact_full":
-            # tile 0 gets exactly 128 = wb2 survivors -> a FULL first
-            # window block (zero garbage lanes) + an empty second one
-            w[0:128] = 1.0
-            w[1024] = 128.0         # and one heavy lone survivor
-        else:
-            for j in range(0, n_pad // t_in, 2):
-                w[j * t_in:j * t_in + 5] = 1.0
-        w /= w.sum()
-        w_row = jnp.asarray(w, jnp.float32)[None, :]
-        w_row = w_row / jnp.sum(w_row)
-        p = jnp.asarray(rng.normal(size=(3, n_pad)), jnp.float32)
-        key = jax.random.key(42)
-        out = merge_resample_rows(key, p, w_row, n, t_in=t_in, t_k=256,
-                                  t_out=256, w_b=4, interpret=True)
-        ref = self._oracle(key, p, w_row, n)
-        assert bool(jnp.all(out == ref))
-
-    def test_seg_chunk_sublane_alignment(self, rng):
-        """The packed seg pass-1 only takes chunk sizes whose (S, 128)
-        block sublane count is a multiple of 8 (Mosaic rejects partial
-        blocks on hardware); shapes with no aligned divisor fall back to
-        the flat kernel with identical outputs (ADVICE r4)."""
-        from tpuslam.ops.resample_pallas import (_pick_chunk,
-                                                 boundary_compact_particles)
-
-        # t_in=256 -> g*2 sublane rows per block: need g % 4 == 0.
-        assert _pick_chunk(25, 256, sublane8=True) == 0   # odd divisors only
-        assert _pick_chunk(100, 256, sublane8=True) == 20  # 50 fails, 20 ok
-        assert _pick_chunk(100, 256) == 50
-        # t_in=2048 -> 16 rows/chunk already aligned: any divisor works.
-        assert _pick_chunk(25, 2048, sublane8=True) == 5
-
-        # Functional fallback: n_pad=6400 -> t_in=256, nt_in=25 (no
-        # aligned g).  packed=True must route to the flat kernel and
-        # bit-match packed=False.
-        n, n_pad, t_in, t_k = 6000, 6400, 256, 256
-        w_row = self._weights(rng, n, n_pad, 4.0)
-        p = jnp.asarray(rng.normal(size=(3, n_pad)), jnp.float32)
-        offs = jax.random.uniform(jax.random.key(7), dtype=jnp.float32)
-        tc_p, cnt_p = boundary_compact_particles(
-            p, w_row, n, offs, t_in, t_k, interpret=True, packed=True)
-        tc_f, cnt_f = boundary_compact_particles(
-            p, w_row, n, offs, t_in, t_k, interpret=True, packed=False)
-        np.testing.assert_array_equal(np.asarray(tc_p), np.asarray(tc_f))
-        np.testing.assert_array_equal(np.asarray(cnt_p),
-                                      np.asarray(cnt_f))
-
-    @pytest.mark.parametrize("n,n_pad,scale", [
-        (1000, 1024, 8.0),
-        (5000, 8192, 0.1),
-    ])
-    def test_fused_boundary_equals_unfused(self, rng, n, n_pad, scale):
-        """The in-kernel boundary build (fused=True) is bit-identical to
-        the XLA boundary build (fused=False) - the exact-integer tiled
-        prefix must reproduce the global quantized_cum decision for
-        every lane."""
-        from tpuslam.ops import merge_resample_rows
-
-        w_row = self._weights(rng, n, n_pad, scale)
-        p = jnp.asarray(rng.normal(size=(3, n_pad)), jnp.float32)
-        key = jax.random.key(n + 1)
-        a = merge_resample_rows(key, p, w_row, n, t_in=1024, t_k=1024,
-                                t_out=1024, w_b=3, interpret=True,
-                                fused=True)
-        b = merge_resample_rows(key, p, w_row, n, t_in=1024, t_k=1024,
-                                t_out=1024, w_b=3, interpret=True,
-                                fused=False)
-        assert bool(jnp.all(a == b))
-
-    @pytest.mark.parametrize("pass2_kw", [
-        {"pass2": "compressed"},
-        {"w_b_small": 1},
-        {"w_b_small": 2},
-    ])
-    @pytest.mark.parametrize("n,n_pad,scale", [
-        (1000, 1024, 8.0),
-        (900, 1024, 0.1),
-        (5000, 8192, 8.0),
-    ])
-    def test_pass2_variants_bit_match(self, rng, n, n_pad, scale,
-                                      pass2_kw):
-        """The compressed two-wide-ref pass 2 and the tiered windowed
-        pass 2 are pure scheduling: outputs bit-match the windowed
-        default (and hence the hist decode) on every weight regime."""
-        from tpuslam.ops import merge_resample_rows
-
-        w_row = self._weights(rng, n, n_pad, scale)
-        p = jnp.asarray(rng.normal(size=(3, n_pad)), jnp.float32)
-        key = jax.random.key(n + 2)
-        ref = self._oracle(key, p, w_row, n)
-        out = merge_resample_rows(key, p, w_row, n, t_in=1024, t_k=1024,
-                                  t_out=1024, w_b=3, interpret=True,
-                                  **pass2_kw)
-        assert bool(jnp.all(out == ref))
-
-    def test_t_k_small_tier_bit_matches(self, rng):
-        """The pass-1 cap tier is pure scheduling: when the small cap
-        holds, when it overflows into the full-cap kernel tier, and
-        when both overflow into the XLA path, the output bit-matches
-        the oracle."""
-        from tpuslam.ops import merge_resample_rows
-
-        n = n_pad = 2048
-        # (a) degenerate weights: few survivors -> small tier taken.
-        w_row = self._weights(rng, n, n_pad, 8.0)
-        p = jnp.asarray(rng.normal(size=(3, n_pad)), jnp.float32)
-        key = jax.random.key(5)
-        ref = self._oracle(key, p, w_row, n)
-        out = merge_resample_rows(key, p, w_row, n, t_in=512, t_k=512,
-                                  t_out=512, w_b=4, t_k_small=128,
-                                  interpret=True)
-        assert bool(jnp.all(out == ref))
-        # (b) ~160 survivors/tile: overflows t_k_small=128, fits
-        # t_k=512 -> full kernel tier.
-        w = np.zeros(n_pad, np.float64)
-        w[::3] = 1.0  # ~171 survivors per 512-lane tile
-        w /= w.sum()
-        w_row = jnp.asarray(w, jnp.float32)[None]
-        ref = self._oracle(key, p, w_row, n)
-        out = merge_resample_rows(key, p, w_row, n, t_in=512, t_k=512,
-                                  t_out=512, w_b=8, t_k_small=128,
-                                  interpret=True)
-        assert bool(jnp.all(out == ref))
-        # (c) uniform: overflows both caps -> XLA fallback.
-        w_row = jnp.full((1, n_pad), 1.0 / n, jnp.float32)
-        ref = self._oracle(key, p, w_row, n)
-        out = merge_resample_rows(key, p, w_row, n, t_in=512, t_k=256,
-                                  t_out=512, w_b=4, t_k_small=128,
-                                  interpret=True)
-        assert bool(jnp.all(out == ref))
-
-    @pytest.mark.parametrize("pattern", ["clustered", "exact_full",
-                                         "alternating"])
-    def test_pass2_compressed_skip_patterns(self, rng, pattern):
-        """Adversarial survivor layouts through the compressed pass 2:
-        super-ref alignment must cover runs that straddle a ``w_b``
-        boundary."""
-        from tpuslam.ops import merge_resample_rows
-
-        n = n_pad = 2048
-        t_in = 256
-        w = np.zeros(n_pad, np.float64)
-        if pattern == "clustered":
-            w[512:520] = 1.0
-        elif pattern == "exact_full":
-            w[0:128] = 1.0
-            w[1024] = 128.0
-        else:
-            for j in range(0, n_pad // t_in, 2):
-                w[j * t_in:j * t_in + 5] = 1.0
-        w /= w.sum()
-        w_row = jnp.asarray(w, jnp.float32)[None, :]
-        w_row = w_row / jnp.sum(w_row)
-        p = jnp.asarray(rng.normal(size=(3, n_pad)), jnp.float32)
-        key = jax.random.key(43)
-        ref = self._oracle(key, p, w_row, n)
-        for kw in ({"pass2": "compressed"}, {"w_b_small": 2}):
-            out = merge_resample_rows(key, p, w_row, n, t_in=t_in,
-                                      t_k=256, t_out=256, w_b=4,
-                                      interpret=True, **kw)
-            assert bool(jnp.all(out == ref))
-
-    def test_fused_step_merge_equals_hist(self, rng):
-        """pf_fused_step_stats with resample_method="merge" is
-        bit-identical to "hist" on the resample branch (noise-free)."""
-        from tpuslam.filters.pf import PfConfig, pf_init
-        from tpuslam.ops.pf_pallas import (pf_fused_init,
-                                           pf_fused_step_stats)
-
-        n = 100
-        parts = jnp.asarray(
-            rng.normal(size=(n, 3)) + np.array([10.0, 0.0, np.pi / 2]),
-            jnp.float32)
-        w = jnp.full((n,), 1e-12).at[-5:].set(0.2)
-        w = w / jnp.sum(w)
-        outs = []
-        for method in ("hist", "merge"):
-            cfg = PfConfig(num_particles=n, weight_mode="log",
-                           resample_method=method,
-                           ess_threshold_frac=0.5)
-            state = pf_init(cfg)._replace(particles=parts, weights=w)
-            fs = pf_fused_init(cfg, state, tile_n=64)
-            fs2, ess = pf_fused_step_stats(cfg, fs, jax.random.key(0), 0,
-                                           noise_on=False, interpret=True)
-            assert float(ess) < n * cfg.ess_threshold_frac
-            outs.append(fs2)
-        np.testing.assert_array_equal(np.asarray(outs[0].particles),
-                                      np.asarray(outs[1].particles))
-        np.testing.assert_array_equal(np.asarray(outs[0].log_w),
-                                      np.asarray(outs[1].log_w))
-
-
-class TestPfPackedLayout:
-    """Sublane-packed (3R, N8) fused-PF layout vs the flat (3, N_pad)
-    layout (ops/pf_pallas.py::_pf_stats_kernel sub_rows)."""
-
-    def test_pack_flat_roundtrip(self, rng):
-        from tpuslam.ops.pf_pallas import _flat_rows, _pack_rows
-
-        rows = jnp.asarray(rng.normal(size=(3, 1024)), jnp.float32)
-        packed = _pack_rows(rows, 8)
-        assert packed.shape == (24, 128)
-        # Flat particle i -> row i // 128, col i % 128 of its plane.
-        np.testing.assert_array_equal(np.asarray(packed[1, 3]),
-                                      np.asarray(rows[0, 128 + 3]))
-        np.testing.assert_array_equal(np.asarray(_flat_rows(packed, 8)),
-                                      np.asarray(rows))
-
-    def test_packed_step_matches_flat(self, rng):
-        """One noise-free step on the packed state returns the same
-        stats/estimate/weights (up to reduction-order FP noise) as the
-        flat state, including the padded-tail masking (n=200 valid flat
-        indices spread over 8 row planes)."""
-        from tpuslam.filters.pf import PfConfig, pf_init
-        from tpuslam.ops.pf_pallas import (pf_fused_init,
-                                           pf_fused_step_stats,
-                                           pf_fused_to_state)
-
-        n = 200
-        cfg = PfConfig(num_particles=n, weight_mode="log")
-        parts = jnp.asarray(
-            rng.normal(size=(n, 3)) * 0.3 + np.array([10.0, 0.0,
-                                                      np.pi / 2]),
-            jnp.float32)
-        w = jnp.asarray(rng.uniform(0.5, 1.5, size=(n,)))
-        w = (w / jnp.sum(w)).astype(jnp.float32)
-        state = pf_init(cfg)._replace(particles=parts, weights=w)
-        key = jax.random.key(5)
-        outs = []
-        for sub_rows, tile in ((1, 64), (8, 128)):
-            fs = pf_fused_init(cfg, state, tile_n=tile,
-                               sub_rows=sub_rows)
-            fs2, ess = pf_fused_step_stats(cfg, fs, key, 0,
-                                           noise_on=False,
-                                           interpret=True, tile_n=tile)
-            outs.append((fs2, ess, pf_fused_to_state(cfg, fs2)))
-        (fa, ea, sa), (fb, eb, sb) = outs
-        np.testing.assert_allclose(float(ea), float(eb), rtol=1e-5)
-        np.testing.assert_allclose(float(fa.lse), float(fb.lse),
-                                   rtol=1e-5)
-        np.testing.assert_allclose(np.asarray(fa.x_est),
-                                   np.asarray(fb.x_est), atol=1e-6)
-        np.testing.assert_allclose(np.asarray(sa.particles),
-                                   np.asarray(sb.particles), atol=1e-6)
-        np.testing.assert_allclose(np.asarray(sa.weights),
-                                   np.asarray(sb.weights), rtol=1e-4)
-
-    def test_packed_rollout_matches_flat(self, rng):
-        """Noise-free multi-step rollouts (incl. resample firings) agree
-        between the flat and packed carries."""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops.pf_pallas import pf_fused_rollout
-
-        cfg = PfConfig(num_particles=192, weight_mode="log",
-                       resample_method="merge",
-                       ess_threshold_frac=0.99)
-        key = jax.random.key(11)
-        _, (xt_a, xe_a) = pf_fused_rollout(cfg, key, 8, noise_on=False,
-                                           interpret=True, tile_n=64,
-                                           sub_rows=1)
-        _, (xt_b, xe_b) = pf_fused_rollout(cfg, key, 8, noise_on=False,
-                                           interpret=True, tile_n=128,
-                                           sub_rows=8)
-        np.testing.assert_array_equal(np.asarray(xt_a), np.asarray(xt_b))
-        np.testing.assert_allclose(np.asarray(xe_a), np.asarray(xe_b),
-                                   atol=1e-5)
-
-
-class TestPfBatchKernel:
-    """Batched fused PF: one filter per tile, in-tile systematic
-    resample via lower-triangular one-hot matmuls
-    (ops/pf_batch_pallas.py)."""
-
-    def test_no_fire_matches_pf_step(self):
-        """Noise-free step with a healthy cloud (gate closed): each
-        filter must match the XLA pf_step log path on the same inputs."""
-        from tpuslam.filters.pf import PfConfig, PfState, pf_step
-        from tpuslam.ops import pf_batch_init, pf_batch_step
-
-        n, b = 100, 4
-        cfg = PfConfig(num_particles=n, weight_mode="log",
-                       ess_threshold_frac=1e-6)  # gate never fires
-        rng = np.random.default_rng(0)
-        parts = rng.normal(size=(n, 3)).astype(np.float32) \
-            + np.array([10.0, 0.0, np.pi / 2], np.float32)
-        w = np.full((n,), 1.0 / n, np.float32)
-
-        st = pf_batch_init(cfg, b)
-        P = st.particles.shape[1] // b
-        p_rows = np.zeros((3, b * P), np.float32)
-        lw_rows = np.full((1, b * P), -np.inf, np.float32)
-        for f in range(b):
-            p_rows[:, f * P:f * P + n] = parts.T
-            lw_rows[0, f * P:f * P + n] = np.log(w)
-        from tpuslam.ops.pf_batch_pallas import pf_batch_refresh_stats
-        st = pf_batch_refresh_stats(cfg, st._replace(
-            particles=jnp.asarray(p_rows), log_w=jnp.asarray(lw_rows)))
-        key = jax.random.key(5)
-        st2, out = pf_batch_step(cfg, st, key, 0, noise_on=False,
+    def test_seed_changes_stream(self):
+        a, _ = ekf_fused_rollout(CFG, 1, batch=32, n_steps=4,
                                  interpret=True)
+        b, _ = ekf_fused_rollout(CFG, 2, batch=32, n_steps=4,
+                                 interpret=True)
+        assert not np.array_equal(np.asarray(a.x_hat), np.asarray(b.x_hat))
 
-        # Oracle: pf_step with the same observation (reconstruct z from
-        # the same key; batch draws (b, L, 2) noise in one call).
-        from tpuslam.core.se2 import world_to_robot
-        from tpuslam.models.process import circular_step
-        x_true = circular_step(jnp.asarray(cfg.x0), cfg.vel,
-                               cfg.yaw_rate, cfg.dt)
-        lm = jnp.asarray(cfg.landmarks, jnp.float32)
-        z0 = world_to_robot(x_true, lm)
-        noise = jax.random.normal(key, (b,) + z0.shape, jnp.float32)
-        zs = z0[None] + noise * jnp.asarray(cfg.r_std, jnp.float32)
+    def test_nees_output_and_shapes(self):
+        final, err, nees = ekf_fused_rollout(CFG, 3, batch=33, n_steps=8,
+                                             with_nees=True, interpret=True)
+        assert final.x_true.shape == final.x_dr.shape == (33, 3)
+        assert final.cov.shape == (33, 3, 3)
+        assert err.shape == nees.shape == (33,)
+        assert np.all(np.asarray(nees) > 0.0)
 
-        from tpuslam.filters.pf import pf_likelihood
-        pred = circular_step(jnp.asarray(parts), cfg.vel, cfg.yaw_rate,
-                             cfg.dt)
-        for f in range(b):
-            like = pf_likelihood(cfg, pred, zs[f])
-            lw_ref = np.log(w) + np.asarray(like)
-            got = np.asarray(st2.log_w[0, f * P:f * P + n])
-            # Landmark-term accumulation order differs: lsb-level noise
-            # at |lw| ~ 1e3 (same caveat as TestPfFusedKernel).
-            np.testing.assert_allclose(got, lw_ref, rtol=1e-5,
-                                       atol=5e-3)
-            # particles unchanged by a noise-free no-fire predict except
-            # the deterministic circular step
-            p_ref = np.asarray(pred)
-            got_p = np.asarray(st2.particles[:, f * P:f * P + n]).T
-            np.testing.assert_allclose(
-                got_p[:, :2], p_ref[:, :2], atol=2e-4)
-            # MAP = argmax lane
-            i_best = int(np.argmax(got))
-            np.testing.assert_allclose(np.asarray(out.x_est[f]),
-                                       got_p[i_best], atol=1e-5)
-
-    def test_in_tile_resample_exact_selection(self):
-        """Weights that are exact binary fractions make the cumsum
-        order-independent, so the in-tile boundaries must reproduce the
-        XLA hist selection exactly (offs pinned to 0.5 via
-        noise_on=False)."""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops import pf_batch_init, pf_batch_step
-
-        n, b = 128, 2
-        cfg = PfConfig(num_particles=n, weight_mode="log",
-                       ess_threshold_frac=2.0)  # always fire
-        rng = np.random.default_rng(1)
-        parts = rng.normal(size=(n, 3)).astype(np.float32)
-        # 8 heavy particles with weight 1/8 each (exact in any order).
-        w = np.zeros((n,), np.float64)
-        heavy = [3, 17, 40, 41, 77, 90, 100, 127]
-        for h in heavy:
-            w[h] = 1.0 / 8.0
-        st = pf_batch_init(cfg, b)
-        P = st.particles.shape[1] // b
-        p_rows = np.zeros((3, b * P), np.float32)
-        lw_rows = np.full((1, b * P), -np.inf, np.float32)
-        lw = np.full((n,), -np.inf)
-        lw[heavy] = np.log(1.0 / 8.0)
-        for f in range(b):
-            p_rows[:, f * P:f * P + n] = parts.T
-            lw_rows[0, f * P:f * P + n] = lw
-        from tpuslam.ops.pf_batch_pallas import pf_batch_refresh_stats
-        st = pf_batch_refresh_stats(cfg, st._replace(
-            particles=jnp.asarray(p_rows), log_w=jnp.asarray(lw_rows)))
-        st2, out = pf_batch_step(cfg, st, jax.random.key(2), 0,
-                                 noise_on=False, interpret=True)
-        assert bool(out.resampled.all())
-
-        # Oracle selection: t = ceil(n*cum - 0.5), slots [t_prev, t).
-        cum = np.cumsum(w)
-        t = np.clip(np.ceil(n * cum - 0.5), 0, n).astype(int)
-        t[-1] = n
-        idx = np.searchsorted(t, np.arange(n), side="right")
-        expect = parts[idx]  # (n, 3) resampled, then circular step
-        from tpuslam.models.process import circular_step
-        expect = np.asarray(circular_step(
-            jnp.asarray(expect), cfg.vel, cfg.yaw_rate, cfg.dt))
-        for f in range(b):
-            got = np.asarray(st2.particles[:, f * P:f * P + n]).T
-            np.testing.assert_allclose(got[:, :2], expect[:, :2],
-                                       atol=1e-5)
-            # resampled weights are uniform then + loglik: all finite
-            assert np.isfinite(
-                np.asarray(st2.log_w[0, f * P:f * P + n])).all()
-
-    def test_rollout_tracks_truth(self):
-        """60-step batched rollout (noise-free kernel - pltpu.prng has
-        no CPU interpret lowering; the noisy path is validated on the
-        real chip by scripts/tpu_pf_batch.py): every filter rides the
-        deterministic orbit exactly."""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops import pf_batch_rollout
-
-        cfg = PfConfig(num_particles=128, weight_mode="log")
-        final, outs = pf_batch_rollout(cfg, jax.random.key(3), batch=4,
-                                       n_steps=60, noise_on=False,
-                                       interpret=True)
-        x_est = np.asarray(outs.x_est)  # (T, B, 3)
-        x_true = np.asarray(outs.x_true)  # (T, 3)
-        err = x_est[:, :, :2] - x_true[:, None, :2]
-        rmse = np.sqrt((err ** 2).sum(-1).mean())
-        assert rmse < 0.5, rmse
-        assert not np.asarray(outs.bad).any()
-        assert np.isfinite(np.asarray(outs.ess)).all()
+    @pytest.mark.parametrize("batch,want", [
+        (1, (32, 1)), (8192, (32, 1)), (4 * 132 * 64, (64, 2)),
+        (8_388_608, (128, 4))])
+    def test_launch_shape(self, batch, want):
+        """One rollout per thread; small batches keep small blocks so the
+        grid spreads over every SM, large ones use 128-rollout blocks."""
+        assert launch_shape(batch) == want
 
 
-    def test_chunked_cells_match_one_filter_per_cell(self):
-        """filters_per_cell is a pure scheduling knob: g=4 and g=1 run
-        the same per-filter math on the same per-filter PRNG streams.
-        Particle states and estimates match exactly; the per-filter
-        logsumexp NORMALIZER may differ by 1 ulp (the m + log(sum)
-        scalar reduction fuses differently over a slice of a wider
-        block), so log weights are compared to 1e-5.  (Noise-free here -
-        the noisy-stream equality is validated on the real chip by
-        scripts/tpu_pf_batch.py.)"""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops import pf_batch_rollout
+class TestCounterRng:
+    @pytest.mark.parametrize("key,ctr", [
+        ((0, 0), (0, 0)), ((12345, 7), (399, 2)),
+        ((0xDEADBEEF, 0xFFFFFFFF), (0x80000000, 1))])
+    def test_threefry_matches_jax(self, key, ctr):
+        """The int32 Threefry-2x32 gives jax's bits for (key, counter)."""
+        want = threefry_2x32(jnp.asarray(key, jnp.uint32),
+                             jnp.asarray(ctr, jnp.uint32))
+        got = rng.threefry2x32(_i32(key[0]), _i32(key[1]), _i32(ctr[0]),
+                               _i32(ctr[1]))
+        np.testing.assert_array_equal(np.asarray(_u32(jnp.stack(got))),
+                                      np.asarray(want))
 
-        cfg = PfConfig(num_particles=128, weight_mode="log")
-        f1, o1 = pf_batch_rollout(cfg, jax.random.key(5), batch=4,
-                                  n_steps=25, noise_on=False,
-                                  interpret=True, filters_per_cell=1)
-        f4, o4 = pf_batch_rollout(cfg, jax.random.key(5), batch=4,
-                                  n_steps=25, noise_on=False,
-                                  interpret=True, filters_per_cell=4)
-        np.testing.assert_array_equal(np.asarray(f4.particles),
-                                      np.asarray(f1.particles))
-        np.testing.assert_allclose(np.asarray(f4.log_w),
-                                   np.asarray(f1.log_w), atol=1e-5)
-        np.testing.assert_array_equal(np.asarray(o4.x_est),
-                                      np.asarray(o1.x_est))
-        # ESS derives from the carried normalizers, whose vectorized
-        # column-partial reductions fuse differently over a slice of a
-        # wider block - same 1-ulp caveat as log_w above.
-        np.testing.assert_allclose(np.asarray(o4.ess),
-                                   np.asarray(o1.ess), rtol=1e-5)
+    def test_normals_deterministic_by_counter(self):
+        lanes = jnp.arange(8, dtype=jnp.int32)
+        a = rng.normals(jnp.int32(4), lanes, jnp.int32(17), 5)
+        b = rng.normals(jnp.int32(4), lanes, jnp.int32(17), 5)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
 
-    def test_compact_cap_is_pure_scheduling(self):
-        """compact_cap (the compact-then-expand firing path's survivor
-        cap) is a pure scheduling knob: cap=0 (direct (P, P) interval
-        expansion), a roomy cap (fast path taken), and a tiny cap (the
-        overflow fallback predicate trips) produce bit-identical
-        rollouts.  ess_threshold_frac=2.0 forces the gate every step so
-        the resample branches actually run (noise-free here; the noisy
-        on-chip equality is scripts/tpu_pf_batch_compact.py)."""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops import pf_batch_rollout
+    def test_streams_distinct_per_rollout_step_and_draw(self):
+        lanes = jnp.arange(256, dtype=jnp.int32)
+        draws = np.stack([np.asarray(x) for step in (0, 1, 2)
+                          for x in rng.normals(jnp.int32(4), lanes,
+                                               jnp.int32(step), 6)])
+        # 3 steps x 6 draws x 256 rollouts: no value repeats anywhere.
+        assert np.unique(draws).size == draws.size
 
-        cfg = PfConfig(num_particles=200, weight_mode="log",
-                       ess_threshold_frac=2.0)
-        res = {}
-        for cap in (0, 64, 8):
-            f, o = pf_batch_rollout(cfg, jax.random.key(0), batch=4,
-                                    n_steps=8, noise_on=False,
-                                    interpret=True, compact_cap=cap)
-            res[cap] = (np.asarray(f.particles), np.asarray(f.log_w),
-                        np.asarray(o.x_est), np.asarray(o.resampled))
-        assert res[0][3].all(), "gate must fire every step in this test"
-        for cap in (64, 8):
-            for i in range(3):
-                np.testing.assert_array_equal(res[cap][i], res[0][i])
-
-
-class TestPfBatchPackedLayout:
-    """Sublane-packed batched PF (R planes per filter) vs the flat
-    layout (ops/pf_batch_pallas.py sub_rows)."""
-
-    def _states(self, rng, n, b, cfg, lw_rows_fn=None):
-        from tpuslam.ops import pf_batch_init
-        from tpuslam.ops.pf_batch_pallas import (_padded_p,
-                                                 pack_batch_rows)
-
-        st_flat = pf_batch_init(cfg, b, sub_rows=1)
-        P = _padded_p(cfg, 1)
-        parts = rng.normal(size=(n, 3)).astype(np.float32) \
-            + np.array([10.0, 0.0, np.pi / 2], np.float32)
-        p_rows = np.zeros((3, b * P), np.float32)
-        lw_rows = np.full((1, b * P), -np.inf, np.float32)
-        for f in range(b):
-            p_rows[:, f * P:f * P + n] = parts.T
-            lw = (lw_rows_fn(f) if lw_rows_fn is not None
-                  else np.log(np.full(n, 1.0 / n)))
-            lw_rows[0, f * P:f * P + n] = lw
-        from tpuslam.ops.pf_batch_pallas import pf_batch_refresh_stats
-
-        st_flat = st_flat._replace(particles=jnp.asarray(p_rows),
-                                   log_w=jnp.asarray(lw_rows))
-        st_flat = pf_batch_refresh_stats(cfg, st_flat)
-        # Same flat content, packed into 8 sublane planes per filter
-        # (requires P divisible by 8*128 -> use n that pads equally).
-        st_packed = st_flat._replace(
-            particles=pack_batch_rows(st_flat.particles, b, 8),
-            log_w=pack_batch_rows(st_flat.log_w, b, 8))
-        return st_flat, st_packed
-
-    def test_pack_roundtrip(self, rng):
-        from tpuslam.ops.pf_batch_pallas import (flat_batch_rows,
-                                                 pack_batch_rows)
-
-        rows = jnp.asarray(rng.normal(size=(3, 2 * 1024)), jnp.float32)
-        packed = pack_batch_rows(rows, 2, 8)
-        assert packed.shape == (24, 2 * 128)
-        # Filter 1, flat particle 130 -> plane row 1, col 128 + 2.
-        np.testing.assert_array_equal(np.asarray(packed[1, 128 + 2]),
-                                      np.asarray(rows[0, 1024 + 130]))
-        np.testing.assert_array_equal(
-            np.asarray(flat_batch_rows(packed, 2, 8)), np.asarray(rows))
-
-    def test_packed_step_matches_flat_no_fire(self, rng):
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops import pf_batch_step
-        from tpuslam.ops.pf_batch_pallas import flat_batch_rows
-
-        n, b = 1000, 2  # pads to 1024 in both layouts
-        cfg = PfConfig(num_particles=n, weight_mode="log",
-                       ess_threshold_frac=1e-6)  # gate closed
-        st_f, st_p = self._states(rng, n, b, cfg)
-        key = jax.random.key(7)
-        sf, of = pf_batch_step(cfg, st_f, key, 0, noise_on=False,
-                               interpret=True)
-        sp, op = pf_batch_step(cfg, st_p, key, 0, noise_on=False,
-                               interpret=True)
-        np.testing.assert_allclose(
-            np.asarray(flat_batch_rows(sp.particles, b, 8)),
-            np.asarray(sf.particles), atol=1e-6)
-        np.testing.assert_allclose(
-            np.asarray(flat_batch_rows(sp.log_w, b, 8)),
-            np.asarray(sf.log_w), rtol=1e-5)
-        np.testing.assert_allclose(np.asarray(op.x_est),
-                                   np.asarray(of.x_est), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(op.ess),
-                                   np.asarray(of.ess), rtol=1e-4)
-
-    def test_packed_resample_matches_flat(self, rng):
-        """Firing step: the packed path relayouts through the flat
-        scratch and must reproduce the flat in-tile selection exactly
-        (same quantized weights, offs pinned 0.5 noise-free)."""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops import pf_batch_step
-        from tpuslam.ops.pf_batch_pallas import flat_batch_rows
-
-        n, b = 1000, 2
-        cfg = PfConfig(num_particles=n, weight_mode="log",
-                       ess_threshold_frac=2.0,  # always fire
-                       q_std=(0.0, 0.0, 0.0))
-        lw_fn = lambda f: rng.normal(size=n) * 4.0  # noqa: E731
-        st_f, st_p = self._states(rng, n, b, cfg, lw_rows_fn=lw_fn)
-        key = jax.random.key(9)
-        sf, of = pf_batch_step(cfg, st_f, key, 0, noise_on=False,
-                               interpret=True)
-        sp, op = pf_batch_step(cfg, st_p, key, 0, noise_on=False,
-                               interpret=True)
-        assert bool(of.resampled.all()) and bool(op.resampled.all())
-        np.testing.assert_array_equal(
-            np.asarray(flat_batch_rows(sp.particles, b, 8)),
-            np.asarray(sf.particles))
-        np.testing.assert_allclose(np.asarray(op.x_est),
-                                   np.asarray(of.x_est), atol=1e-5)
-
-    def test_packed_rollout_tracks_truth(self):
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops import pf_batch_rollout
-
-        cfg = PfConfig(num_particles=1000, weight_mode="log")
-        final, outs = pf_batch_rollout(cfg, jax.random.key(3), batch=2,
-                                       n_steps=40, noise_on=False,
-                                       interpret=True, sub_rows=8)
-        assert final.particles.shape[0] == 24
-        x_est = np.asarray(outs.x_est)
-        x_true = np.asarray(outs.x_true)
-        err = x_est[:, :, :2] - x_true[:, None, :2]
-        assert np.sqrt((err ** 2).sum(-1).mean()) < 0.5
-        assert not np.asarray(outs.bad).any()
-
-    def test_wide_packed_rollout_matches_flat(self):
-        """Wide batched PF: the packed pass-C carry (+ flat-order
-        transposes inside the firing branch) must reproduce the flat
-        rollout bit-for-bit on the noise-free path (same quantized
-        selection, same offs stream)."""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops import pf_batch_wide_rollout
-        from tpuslam.ops.pf_batch_pallas import flat_batch_rows
-
-        # Noise-free clouds stay identical, so ESS = n and the default
-        # gate never fires; force it so the firing relayout is covered.
-        cfg = PfConfig(num_particles=2048, weight_mode="log",
-                       ess_threshold_frac=2.0)  # always fire
-        key = jax.random.key(13)
-        ff, of = pf_batch_wide_rollout(cfg, key, batch=2, n_steps=8,
-                                       noise_on=False, interpret=True,
-                                       sub_rows=1)
-        fp, op = pf_batch_wide_rollout(cfg, key, batch=2, n_steps=8,
-                                       noise_on=False, interpret=True,
-                                       sub_rows=8)
-        assert fp.particles.shape[0] == 24
-        assert bool(np.asarray(of.resampled).any())
-        np.testing.assert_array_equal(
-            np.asarray(flat_batch_rows(fp.particles, 2, 8)),
-            np.asarray(ff.particles))
-        np.testing.assert_allclose(np.asarray(op.x_est),
-                                   np.asarray(of.x_est), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(op.lse),
-                                   np.asarray(of.lse), rtol=1e-5)
-
-    def test_wide_t_k_cap_is_selection_invariant(self):
-        """The pass-A survivor cap t_k is pure scheduling: any value
-        (including ones that force the overflow fallback) must produce
-        bit-identical particles - the boundary law and the quantized
-        weights never see it."""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops import pf_batch_wide_rollout
-        from tpuslam.ops.pf_batch_pallas import flat_batch_rows
-
-        cfg = PfConfig(num_particles=2048, weight_mode="log",
-                       ess_threshold_frac=2.0)  # always fire
-        key = jax.random.key(13)
-        f_def, o_def = pf_batch_wide_rollout(
-            cfg, key, batch=2, n_steps=6, noise_on=False, interpret=True,
-            sub_rows=1)
-        for tk in (64, 128):
-            f_tk, o_tk = pf_batch_wide_rollout(
-                cfg, key, batch=2, n_steps=6, noise_on=False,
-                interpret=True, sub_rows=1, t_k=tk)
-            np.testing.assert_array_equal(
-                np.asarray(f_tk.particles), np.asarray(f_def.particles),
-                err_msg=f"t_k={tk}")
-            np.testing.assert_array_equal(
-                np.asarray(o_tk.x_est), np.asarray(o_def.x_est),
-                err_msg=f"t_k={tk}")
-
-
-class TestFastmath:
-    """Polynomial sincos used by the kernels' Box-Muller noise
-    (ops/fastmath.py); accuracy must be ~f32-ulp over the full turn."""
+    def test_uniform_and_normal_moments(self):
+        n = 1 << 16
+        lanes = jnp.arange(n, dtype=jnp.int32)
+        u1, u2 = rng.uniforms(*rng.threefry2x32(jnp.int32(1), lanes,
+                                                jnp.int32(0), 0))
+        for u in (np.asarray(u1, np.float64), np.asarray(u2, np.float64)):
+            assert 0.0 <= u.min() and u.max() < 1.0
+            se = np.sqrt(1 / 12 / n)
+            assert abs(u.mean() - 0.5) < 5 * se
+            assert abs(u.var() - 1 / 12) < 5 * np.sqrt(1 / 180 / n)
+        z = np.concatenate([np.asarray(x, np.float64) for x in rng.normals(
+            jnp.int32(2), lanes, jnp.int32(3), 4)])
+        m = z.size
+        assert abs(z.mean()) < 5 / np.sqrt(m)
+        assert abs(z.var() - 1.0) < 5 * np.sqrt(2 / m)
+        assert abs(np.mean(z ** 3)) < 5 * np.sqrt(15 / m)
+        assert abs(np.mean(z ** 4) - 3.0) < 5 * np.sqrt(96 / m)
 
     def test_sincos_turns_accuracy(self):
-        from tpuslam.ops.fastmath import sincos_turns
-
         u = jnp.asarray(np.linspace(0.0, 1.0, 100001)[:-1], jnp.float32)
-        c, s = sincos_turns(u)
-        ref_c = np.cos(2 * np.pi * np.asarray(u, np.float64))
-        ref_s = np.sin(2 * np.pi * np.asarray(u, np.float64))
-        assert np.max(np.abs(np.asarray(c) - ref_c)) < 5e-7
-        assert np.max(np.abs(np.asarray(s) - ref_s)) < 5e-7
-
-    def test_sincos_rad_any_angle(self):
-        from tpuslam.ops.fastmath import sincos_rad
-
-        th = jnp.asarray(np.linspace(-20.0, 20.0, 40001), jnp.float32)
-        c, s = sincos_rad(th)
-        ref_c = np.cos(np.asarray(th, np.float64))
-        ref_s = np.sin(np.asarray(th, np.float64))
-        # Argument folding in f32 loses a few ulps at |theta| ~ 20.
-        assert np.max(np.abs(np.asarray(c) - ref_c)) < 5e-6
-        assert np.max(np.abs(np.asarray(s) - ref_s)) < 5e-6
-
-
-class TestPfBatchWide:
-    """Wide batched fused PF: B filters x W tiles each
-    (ops/pf_batch_pallas.py pf_batch_wide_*); closes the one-tile cap of
-    the original batch kernel (reference NP as a free parameter,
-    particle_filter.py:31)."""
-
-    @staticmethod
-    def _skewed_state(cfg, b, tile_n, seed=0):
-        from tpuslam.ops.pf_batch_pallas import (_wide_dims,
-                                                 pf_batch_wide_init)
-
-        w_tiles, np_ = _wide_dims(cfg, tile_n)
-        n = cfg.num_particles
-        rng = np.random.default_rng(seed)
-        st = pf_batch_wide_init(cfg, b, tile_n)
-        p = np.asarray(st.particles).copy()
-        p += rng.normal(size=p.shape) * 0.3
-        lw = np.full((1, b * np_), -np.inf, np.float32)
-        lse = np.zeros(b, np.float32)
-        lse2 = np.zeros(b, np.float32)
-        for f in range(b):
-            vals = rng.normal(size=n) * 8.0  # heavy skew -> gate fires
-            lw[0, f * np_:f * np_ + n] = vals
-            m = vals.max()
-            lse[f] = m + np.log(np.exp(vals - m).sum())
-            lse2[f] = 2 * m + np.log(np.exp(2 * (vals - m)).sum())
-        return st._replace(particles=jnp.asarray(p),
-                           log_w=jnp.asarray(lw),
-                           lse=jnp.asarray(lse), lse2=jnp.asarray(lse2))
-
-    @staticmethod
-    def _mixed_state(cfg, b, tile_n, skew_ids, seed=0):
-        """Only the filters in ``skew_ids`` have degenerate weights (the
-        ESS gate fires for exactly those); the rest stay uniform."""
-        from tpuslam.ops.pf_batch_pallas import (_wide_dims,
-                                                 pf_batch_wide_init)
-
-        w_tiles, np_ = _wide_dims(cfg, tile_n)
-        n = cfg.num_particles
-        rng = np.random.default_rng(seed)
-        st = pf_batch_wide_init(cfg, b, tile_n)
-        p = np.asarray(st.particles).copy()
-        p += rng.normal(size=p.shape) * 0.3
-        lw = np.asarray(st.log_w).copy()
-        lse = np.asarray(st.lse).copy()
-        lse2 = np.asarray(st.lse2).copy()
-        for f in skew_ids:
-            vals = rng.normal(size=n) * 8.0
-            lw[0, f * np_:f * np_ + n] = vals
-            m = vals.max()
-            lse[f] = m + np.log(np.exp(vals - m).sum())
-            lse2[f] = 2 * m + np.log(np.exp(2 * (vals - m)).sum())
-        return st._replace(particles=jnp.asarray(p),
-                           log_w=jnp.asarray(lw),
-                           lse=jnp.asarray(lse), lse2=jnp.asarray(lse2))
-
-    def test_tiered_dispatch_matches_untiered(self):
-        """Both fire tiers (burst <= fire_cap_small -> small kernel,
-        larger -> full-cap kernel) must produce the state the untiered
-        full-cap path produces, bit for bit: the tiers quantize gathered
-        rows with the shared row-independent law, so the selection is
-        the same in any tier.  (Exact equality holds on this in-process
-        CPU backend; on TPU the weight-normalizer row sum may tile
-        differently across tier SHAPES and round ``total`` differently,
-        flipping ~1-per-1e4 selections - within the quantized-resample
-        contract, which only requires every decode of one step to share
-        one (wq, total) pair.)"""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops.pf_batch_pallas import pf_batch_wide_step
-
-        b, tile_n = 12, 256
-        cfg = PfConfig(num_particles=1000, weight_mode="log")
-        for skew_ids in ((3, 9), (0, 2, 4, 5, 7, 8, 10, 11)):
-            st = self._mixed_state(cfg, b, tile_n, skew_ids)
-            kw = dict(tile_n=tile_n, noise_on=False, interpret=True)
-            st_t, out_t = pf_batch_wide_step(
-                cfg, st, jax.random.key(3), 1, fire_cap_small=4, **kw)
-            st_u, out_u = pf_batch_wide_step(
-                cfg, st, jax.random.key(3), 1, fire_cap_small=b, **kw)
-            assert int(np.asarray(out_t.resampled).sum()) == len(skew_ids)
-            np.testing.assert_array_equal(np.asarray(st_t.particles),
-                                          np.asarray(st_u.particles))
-            np.testing.assert_array_equal(np.asarray(st_t.log_w),
-                                          np.asarray(st_u.log_w))
-            np.testing.assert_array_equal(np.asarray(st_t.x_est),
-                                          np.asarray(st_u.x_est))
-
-    def test_resample_matches_vmapped_decode(self, rng):
-        """Firing step, noise-free: the kernel resample selection must be
-        bit-identical per filter to the shared-t XLA decode on the same
-        quantized weights and the same comb offsets."""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.models.process import circular_step
-        from tpuslam.ops.pf_batch_pallas import (_wide_dims,
-                                                 pf_batch_wide_step)
-        from tpuslam.ops.resample_pallas import (decode_indices,
-                                                 slot_boundaries)
-
-        b, tile_n = 3, 256
-        cfg = PfConfig(num_particles=1000, weight_mode="log",
-                       ess_threshold_frac=0.5)
-        n = cfg.num_particles
-        w_tiles, np_ = _wide_dims(cfg, tile_n)
-        st = self._skewed_state(cfg, b, tile_n)
-        key = jax.random.key(7)
-        st2, out = pf_batch_wide_step(cfg, st, key, 1, tile_n=tile_n,
-                                      noise_on=False, interpret=True)
-        assert bool(np.asarray(out.resampled).all())
-
-        # Expected: replicate the step's own RNG derivation.
-        k_rs, k_obs = jax.random.split(key)
-        offs = jax.random.uniform(k_rs, (b,), jnp.float32)
-        lw2 = st.log_w.reshape(b, np_)
-        w_rows = jnp.exp(lw2 - st.lse[:, None])
-        p3 = np.asarray(st.particles).reshape(3, b, np_)
-        x_true = circular_step(st.x_true, cfg.vel, cfg.yaw_rate, cfg.dt)
-        v, w_, dt = cfg.vel, cfg.yaw_rate, cfg.dt
-        for f in range(b):
-            t_row = slot_boundaries(w_rows[f][None, :], n, offs[f])
-            idx = np.asarray(decode_indices(t_row, n))
-            sel = p3[:, f, idx]  # (3, n) resampled particles
-            # Noise-free predict (circular step, reference yaw handling).
-            x = sel[0] + v * dt * np.cos(sel[2])
-            y = sel[1] + v * dt * np.sin(sel[2])
-            got = np.asarray(st2.particles)[:, f * np_:f * np_ + n]
-            np.testing.assert_allclose(got[0], x, atol=1e-5)
-            np.testing.assert_allclose(got[1], y, atol=1e-5)
-
-    def test_pass2_compressed_matches_windowed(self):
-        """Wide pass B over the compressed stack (two super-refs) is
-        bit-identical to the windowed pass B, firing filters mixed with
-        idle ones and padding lanes (np_ > n) in play."""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops.pf_batch_pallas import pf_batch_wide_step
-
-        b, tile_n = 6, 256
-        cfg = PfConfig(num_particles=1000, weight_mode="log")
-        st = self._mixed_state(cfg, b, tile_n, (1, 4, 5))
-        kw = dict(tile_n=tile_n, noise_on=False, interpret=True)
-        st_w, out_w = pf_batch_wide_step(cfg, st, jax.random.key(11), 1,
-                                         **kw)
-        st_c, out_c = pf_batch_wide_step(cfg, st, jax.random.key(11), 1,
-                                         pass2="compressed", **kw)
-        assert int(np.asarray(out_w.resampled).sum()) == 3
-        np.testing.assert_array_equal(np.asarray(st_w.particles),
-                                      np.asarray(st_c.particles))
-        np.testing.assert_array_equal(np.asarray(st_w.log_w),
-                                      np.asarray(st_c.log_w))
-        np.testing.assert_array_equal(np.asarray(st_w.x_est),
-                                      np.asarray(st_c.x_est))
-
-    def test_pass_a_seg_matches_flat(self):
-        """Wide pass A via the segment-packed kernel (pass_a="seg":
-        fids-indexed particle planes + slot-indexed wq/cum planes) is
-        bit-identical to the flat pass A, with firing filters mixed with
-        idle ones and padding lanes (np_ > n) in play.  Covers the wide
-        five-plane BlockSpec plumbing that only the TPU ablation script
-        exercised before (ADVICE r4)."""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops.pf_batch_pallas import pf_batch_wide_step
-
-        b, tile_n = 6, 256
-        cfg = PfConfig(num_particles=1000, weight_mode="log")
-        st = self._mixed_state(cfg, b, tile_n, (1, 4, 5))
-        kw = dict(tile_n=tile_n, noise_on=False, interpret=True)
-        st_f, out_f = pf_batch_wide_step(cfg, st, jax.random.key(11), 1,
-                                         **kw)
-        st_s, out_s = pf_batch_wide_step(cfg, st, jax.random.key(11), 1,
-                                         pass_a="seg", **kw)
-        assert int(np.asarray(out_f.resampled).sum()) == 3
-        np.testing.assert_array_equal(np.asarray(out_f.resampled),
-                                      np.asarray(out_s.resampled))
-        np.testing.assert_array_equal(np.asarray(st_f.particles),
-                                      np.asarray(st_s.particles))
-        np.testing.assert_array_equal(np.asarray(st_f.log_w),
-                                      np.asarray(st_s.log_w))
-        np.testing.assert_array_equal(np.asarray(st_f.x_est),
-                                      np.asarray(st_s.x_est))
-
-    def test_padding_lanes_match_xla_fallback(self):
-        """num_particles not a tile_n multiple (np_ >= n + 2) with >= 2
-        firing filters: the kernel path must keep every padding lane
-        [n, np_) zero through the resample, bit-matching the XLA
-        fallback.  Regression: a slot-key spacing of (n + 1) instead of
-        (np_ + 1) lets slot c's padding lanes alias into slot c+1's
-        keyed boundary intervals, summing the NEXT firing filter's
-        particles into them (expand_compacted's contract is 'slots
-        outside every lane's interval stay 0')."""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops.pf_batch_pallas import pf_batch_wide_step
-
-        b, tile_n = 4, 256
-        cfg = PfConfig(num_particles=1000, weight_mode="log")  # np_=1024
-        st = self._skewed_state(cfg, b, tile_n)
-        kw = dict(tile_n=tile_n, noise_on=False, interpret=True)
-        st_k, out_k = pf_batch_wide_step(cfg, st, jax.random.key(5), 1,
-                                         **kw)
-        # fire_cap=1 < n_fire forces the all-filter XLA decode (the
-        # overflow fallback), which writes zeros to padding lanes.
-        st_x, out_x = pf_batch_wide_step(cfg, st, jax.random.key(5), 1,
-                                         fire_cap=1, **kw)
-        assert bool(np.asarray(out_k.resampled).all())
-        assert bool(np.asarray(out_x.resampled).all())
-        np.testing.assert_array_equal(np.asarray(st_k.particles),
-                                      np.asarray(st_x.particles))
-        np.testing.assert_array_equal(np.asarray(st_k.log_w),
-                                      np.asarray(st_x.log_w))
-        np.testing.assert_array_equal(np.asarray(st_k.x_est),
-                                      np.asarray(st_x.x_est))
-
-    def test_stats_match_xla_recompute(self):
-        """lse/lse2/MAP from the stats pass == XLA recompute on the
-        step's own output log weights."""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops.pf_batch_pallas import (_wide_dims,
-                                                 pf_batch_wide_step)
-
-        b, tile_n = 2, 256
-        cfg = PfConfig(num_particles=900, weight_mode="log",
-                       ess_threshold_frac=0.5)
-        w_tiles, np_ = _wide_dims(cfg, tile_n)
-        st = self._skewed_state(cfg, b, tile_n, seed=3)
-        st2, out = pf_batch_wide_step(cfg, st, jax.random.key(9), 1,
-                                      tile_n=tile_n, noise_on=False,
-                                      interpret=True)
-        lw = np.asarray(st2.log_w, np.float64).reshape(b, np_)
-        for f in range(b):
-            fin = lw[f][np.isfinite(lw[f])]
-            m = fin.max()
-            lse = m + np.log(np.exp(fin - m).sum())
-            lse2 = 2 * m + np.log(np.exp(2 * (fin - m)).sum())
-            assert np.isclose(float(st2.lse[f]), lse, atol=1e-4)
-            assert np.isclose(float(st2.lse2[f]), lse2, atol=1e-4)
-            best = np.argmax(lw[f])
-            np.testing.assert_allclose(
-                np.asarray(st2.x_est)[f],
-                np.asarray(st2.particles)[:, f * np_ + best], atol=1e-5)
-
-    def test_no_fire_keeps_particles(self):
-        """Uniform weights: no filter fires; predict applies to the
-        original clouds (noise-free: deterministic shift)."""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.models.process import circular_step
-        from tpuslam.ops.pf_batch_pallas import (pf_batch_wide_init,
-                                                 pf_batch_wide_step)
-
-        cfg = PfConfig(num_particles=500, weight_mode="log")
-        st = pf_batch_wide_init(cfg, 2, tile_n=256)
-        st2, out = pf_batch_wide_step(cfg, st, jax.random.key(0), 1,
-                                      tile_n=256, noise_on=False,
-                                      interpret=True)
-        assert not bool(np.asarray(out.resampled).any())
-        x0 = np.asarray(st.particles)
-        v, dt = cfg.vel, cfg.dt
-        want_x = x0[0] + v * dt * np.cos(x0[2])
-        lw = np.asarray(st2.log_w)
-        valid = np.isfinite(lw[0])
-        np.testing.assert_allclose(np.asarray(st2.particles)[0][valid],
-                                   want_x[valid], atol=1e-5)
-
-    def test_rollout_tracks(self):
-        """10k-particle filters (10 tiles each) track the circular truth
-        over a short noise-free rollout."""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops.pf_batch_pallas import pf_batch_wide_rollout
-
-        cfg = PfConfig(num_particles=2048, weight_mode="log")
-        final, outs = pf_batch_wide_rollout(cfg, jax.random.key(2), 2, 8,
-                                            tile_n=512, noise_on=False,
-                                            interpret=True)
-        err = np.asarray(outs.x_est[..., :2]
-                         - outs.x_true[:, None, :2])
-        rmse = np.sqrt((err ** 2).sum(-1).mean())
-        assert rmse < 1.0
-        assert np.isfinite(np.asarray(final.lse)).all()
+        c, s = rng.sincos_turns(u)
+        ref = 2 * np.pi * np.asarray(u, np.float64)
+        assert np.max(np.abs(np.asarray(c) - np.cos(ref))) < 5e-7
+        assert np.max(np.abs(np.asarray(s) - np.sin(ref))) < 5e-7

@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tpuslam.filters import EkfConfig, PfConfig, ekf_rollout_batch, pf_init
-from tpuslam.parallel import (make_mesh, sharded_ekf_sweep, sharded_pf_step)
+from slamsim.filters import EkfConfig, PfConfig, ekf_rollout_batch, pf_init
+from slamsim.parallel import (make_mesh, sharded_ekf_sweep, sharded_pf_step)
 
 
-pytestmark = pytest.mark.slow  # interpret-mode Pallas / multi-device suites: run in the full tier only
+pytestmark = pytest.mark.slow  # multi-device suites: run in the full tier only
 
 
 def test_mesh_has_8_devices():
@@ -73,250 +73,17 @@ class TestShardedPf:
         assert np.mean(errs[10:]) < 1.0
 
 
-class TestShardedFusedPf:
-    """Particle-sharded fused-kernel PF (interpret-mode kernel)."""
-
-    def test_stats_match_single_device(self):
-        """Noise-free: global lse/lse2/MAP of the sharded step must match
-        the single-device fused step on the same (replicated) cloud."""
-        from tpuslam.ops.pf_pallas import (pf_fused_init,
-                                           pf_fused_step_stats)
-        from tpuslam.parallel import (make_mesh, sharded_pf_fused_init,
-                                      sharded_pf_fused_step)
-        from tpuslam.filters.pf import pf_init
-
-        cfg = PfConfig(num_particles=512, weight_mode="log",
-                       resample_method="hist")
-        mesh = make_mesh(n_rollout=1, n_particle=8)
-        fs_s = sharded_pf_fused_init(cfg, mesh, tile_n=64)
-        fs_1 = pf_fused_init(cfg, pf_init(cfg), tile_n=64)
-        key = jax.random.key(0)
-        step_s = jax.jit(lambda f, k: sharded_pf_fused_step(
-            cfg, mesh, f, k, 0, noise_on=False, interpret=True,
-            tile_n=64))
-        step_1 = jax.jit(lambda f, k: pf_fused_step_stats(
-            cfg, f, k, 0, noise_on=False, interpret=True, tile_n=64))
-        # k_obs derivation differs only via jax.random.split structure -
-        # both paths split the same key the same way.
-        fs_s2, ess_s = step_s(fs_s, key)
-        fs_12, ess_1 = step_1(fs_1, key)
-        assert np.isclose(float(ess_s), float(ess_1), rtol=1e-5)
-        assert np.isclose(float(fs_s2.lse), float(fs_12.lse), atol=1e-4)
-        assert np.isclose(float(fs_s2.lse2), float(fs_12.lse2), atol=1e-4)
-        np.testing.assert_allclose(np.asarray(fs_s2.x_est),
-                                   np.asarray(fs_12.x_est), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(fs_s2.x_true),
-                                   np.asarray(fs_12.x_true), atol=1e-6)
-
-    def test_mean_estimate_matches_single_device(self):
-        """estimate="mean" (weighted mean, circular yaw averaging) on the
-        sharded path must match the single-device fused step."""
-        from tpuslam.ops.pf_pallas import (pf_fused_init,
-                                           pf_fused_step_stats)
-        from tpuslam.parallel import (make_mesh, sharded_pf_fused_init,
-                                      sharded_pf_fused_step)
-        from tpuslam.filters.pf import pf_init
-
-        cfg = PfConfig(num_particles=512, weight_mode="log",
-                       resample_method="hist", estimate="mean")
-        mesh = make_mesh(n_rollout=1, n_particle=8)
-        fs_s = sharded_pf_fused_init(cfg, mesh, tile_n=64)
-        fs_1 = pf_fused_init(cfg, pf_init(cfg), tile_n=64)
-        key = jax.random.key(0)
-        fs_s2, ess_s = jax.jit(lambda f, k: sharded_pf_fused_step(
-            cfg, mesh, f, k, 0, noise_on=False, interpret=True,
-            tile_n=64))(fs_s, key)
-        fs_12, ess_1 = jax.jit(lambda f, k: pf_fused_step_stats(
-            cfg, f, k, 0, noise_on=False, interpret=True,
-            tile_n=64))(fs_1, key)
-        assert np.isclose(float(ess_s), float(ess_1), rtol=1e-5)
-        np.testing.assert_allclose(np.asarray(fs_s2.x_est),
-                                   np.asarray(fs_12.x_est), atol=1e-5)
-
-    def test_packed_shards_match_flat(self):
-        """Sublane-packed local shards (sub_rows=8): stats, estimate
-        and the resample firing path must match the flat sharded step
-        (same keys; the packed state is a per-device relayout of the
-        same cloud)."""
-        from tpuslam.ops.pf_pallas import _flat_rows, _pack_rows
-        from tpuslam.parallel import (make_mesh, sharded_pf_fused_init,
-                                      sharded_pf_fused_step)
-
-        n, n_dev = 2048, 4
-        cfg = PfConfig(num_particles=n, weight_mode="log",
-                       resample_method="merge", ess_threshold_frac=0.9)
-        mesh = make_mesh(n_rollout=1, n_particle=n_dev)
-        fs_f = sharded_pf_fused_init(cfg, mesh, tile_n=32, sub_rows=1)
-        fs_p = sharded_pf_fused_init(cfg, mesh, tile_n=32, sub_rows=8)
-        n_local = n // n_dev
-        rng = np.random.default_rng(11)
-        parts = rng.normal(size=(3, n)).astype(np.float32) * 0.3 \
-            + np.array([[10.0], [0.0], [np.pi / 2]], np.float32)
-        lw = (rng.normal(size=n) * 3.0).astype(np.float32)
-        lse = float(np.log(np.exp(lw).sum()))
-        lse2 = float(np.log(np.exp(2 * lw).sum()))
-        # Per-device flat blocks (no padding at this size).
-        fs_f = fs_f._replace(particles=jnp.asarray(parts),
-                             log_w=jnp.asarray(lw[None]),
-                             lse=jnp.float32(lse), lse2=jnp.float32(lse2))
-        # Same cloud, each device block packed into 8 planes.
-        pp = np.concatenate(
-            [np.asarray(_pack_rows(
-                jnp.asarray(parts[:, d * n_local:(d + 1) * n_local]), 8))
-             for d in range(n_dev)], axis=1)
-        lwp = np.concatenate(
-            [np.asarray(_pack_rows(
-                jnp.asarray(lw[None, d * n_local:(d + 1) * n_local]), 8))
-             for d in range(n_dev)], axis=1)
-        fs_p = fs_p._replace(particles=jnp.asarray(pp),
-                             log_w=jnp.asarray(lwp),
-                             lse=jnp.float32(lse), lse2=jnp.float32(lse2))
-        key = jax.random.key(2)
-        ff2, ess_f = jax.jit(lambda f, k: sharded_pf_fused_step(
-            cfg, mesh, f, k, 0, noise_on=False, interpret=True,
-            tile_n=32))(fs_f, key)
-        fp2, ess_p = jax.jit(lambda f, k: sharded_pf_fused_step(
-            cfg, mesh, f, k, 0, noise_on=False, interpret=True,
-            tile_n=32))(fs_p, key)
-        assert float(ess_f) < n * 0.9  # the gate fired
-        assert np.isclose(float(ess_p), float(ess_f), rtol=1e-5)
-        assert np.isclose(float(fp2.lse), float(ff2.lse), atol=1e-4)
-        np.testing.assert_allclose(np.asarray(fp2.x_est),
-                                   np.asarray(ff2.x_est), atol=1e-5)
-        # Per-device blocks must hold the same resampled particles.
-        n8 = n_local // 8
-        for d in range(n_dev):
-            blk = fp2.particles[:, d * n8:(d + 1) * n8]
-            np.testing.assert_array_equal(
-                np.asarray(_flat_rows(blk, 8)),
-                np.asarray(ff2.particles[:, d * n_local:(d + 1) * n_local]))
-
-    def test_resample_branch_global_comb(self):
-        """A skewed cloud trips the gate; resampled particles must come
-        from the heavy support on EVERY shard (global comb)."""
-        from tpuslam.parallel import (make_mesh, sharded_pf_fused_init,
-                                      sharded_pf_fused_step)
-
-        n = 256
-        cfg = PfConfig(num_particles=n, weight_mode="log",
-                       resample_method="hist", ess_threshold_frac=0.5)
-        mesh = make_mesh(n_rollout=1, n_particle=8)
-        fs = sharded_pf_fused_init(cfg, mesh, tile_n=32)
-        # Make the LAST device's particles heavy and distinctive.
-        p = np.asarray(fs.particles).copy()
-        lw = np.full_like(np.asarray(fs.log_w), -30.0)
-        n_local = n // 8
-        p[0, -n_local:] = 99.0  # x = 99 marks the heavy shard
-        lw[0, -n_local:] = 0.0
-        lse = float(np.log(np.sum(np.exp(lw[np.isfinite(lw)]))))
-        lse2 = float(np.log(np.sum(np.exp(2 * lw[np.isfinite(lw)]))))
-        fs = fs._replace(particles=jnp.asarray(p), log_w=jnp.asarray(lw),
-                         lse=jnp.float32(lse), lse2=jnp.float32(lse2))
-        fs2, ess = jax.jit(lambda f, k: sharded_pf_fused_step(
-            cfg, mesh, f, k, 0, noise_on=False, interpret=True,
-            tile_n=32))(fs, jax.random.key(1))
-        assert float(ess) < n * cfg.ess_threshold_frac
-        out = np.asarray(fs2.particles)
-        lw2 = np.asarray(fs2.log_w)
-        # Every VALID lane descends from an x=99 particle (advanced one
-        # noise-free step; x moves by < 2 per step).
-        assert (out[0][np.isfinite(lw2[0])] > 90.0).all()
-
-    def test_merge_survivor_exchange_matches_gather(self):
-        """resample_method="merge" (survivor exchange: compacted blocks
-        all-gathered, local pass-2 expansion) must be bit-identical to
-        the gather-everything "hist" path - same key, same comb, same
-        boundary tensor, exact kernel values."""
-        from tpuslam.parallel import (make_mesh, sharded_pf_fused_init,
-                                      sharded_pf_fused_step)
-
-        n = 256
-        mesh = make_mesh(n_rollout=1, n_particle=8)
-        rng = np.random.default_rng(3)
-        p = None
-        outs = {}
-        for method in ("hist", "merge"):
-            cfg = PfConfig(num_particles=n, weight_mode="log",
-                           resample_method=method,
-                           ess_threshold_frac=0.5)
-            fs = sharded_pf_fused_init(cfg, mesh, tile_n=32)
-            if p is None:
-                p = np.asarray(fs.particles).copy()
-                p += rng.normal(size=p.shape) * 0.1
-                lw = rng.normal(size=np.asarray(fs.log_w).shape) * 6.0
-                lw[~np.isfinite(np.asarray(fs.log_w))] = -np.inf
-                fin = lw[np.isfinite(lw)]
-                lse = float(np.log(np.sum(np.exp(fin - fin.max())))
-                            + fin.max())
-                lse2 = float(np.log(np.sum(np.exp(2 * (fin - fin.max()))))
-                             + 2 * fin.max())
-            fs = fs._replace(particles=jnp.asarray(p, jnp.float32),
-                             log_w=jnp.asarray(lw, jnp.float32),
-                             lse=jnp.float32(lse), lse2=jnp.float32(lse2))
-            fs2, ess = jax.jit(lambda f, k, c=cfg: sharded_pf_fused_step(
-                c, mesh, f, k, 0, noise_on=False, interpret=True,
-                tile_n=32))(fs, jax.random.key(7))
-            assert float(ess) < n * cfg.ess_threshold_frac
-            outs[method] = fs2
-        np.testing.assert_array_equal(
-            np.asarray(outs["hist"].particles),
-            np.asarray(outs["merge"].particles))
-        np.testing.assert_array_equal(
-            np.asarray(outs["hist"].log_w), np.asarray(outs["merge"].log_w))
-
-    def test_merge_cap_overflow_falls_back(self):
-        """Near-uniform weights (survivors > t_k per tile) must trip the
-        replicated overflow predicate and still produce the exact
-        gather-path result."""
-        from tpuslam.parallel import (make_mesh, sharded_pf_fused_init,
-                                      sharded_pf_fused_step)
-
-        n = 4096  # n_local=512 -> t_in=512, t_k=256 < t_in: overflowable
-        mesh = make_mesh(n_rollout=1, n_particle=8)
-        outs = {}
-        for method in ("hist", "merge"):
-            cfg = PfConfig(num_particles=n, weight_mode="log",
-                           resample_method=method,
-                           ess_threshold_frac=2.0)  # always fire
-            fs = sharded_pf_fused_init(cfg, mesh, tile_n=512)
-            fs2, _ = jax.jit(lambda f, k, c=cfg: sharded_pf_fused_step(
-                c, mesh, f, k, 0, noise_on=False, interpret=True,
-                tile_n=512))(fs, jax.random.key(9))
-            outs[method] = fs2
-        np.testing.assert_array_equal(
-            np.asarray(outs["hist"].particles),
-            np.asarray(outs["merge"].particles))
-
-    def test_tracks_truth(self):
-        """30 sharded fused steps (noise-free kernel): the MAP estimate
-        follows the deterministic orbit."""
-        from tpuslam.parallel import (make_mesh, sharded_pf_fused_init,
-                                      sharded_pf_fused_step)
-
-        cfg = PfConfig(num_particles=128, weight_mode="log",
-                       resample_method="hist")
-        mesh = make_mesh(n_rollout=1, n_particle=8)
-        fs = sharded_pf_fused_init(cfg, mesh, tile_n=16)
-        step = jax.jit(lambda f, k: sharded_pf_fused_step(
-            cfg, mesh, f, k, 0, noise_on=False, interpret=True,
-            tile_n=16))
-        for i in range(30):
-            fs, _ = step(fs, jax.random.key(i))
-        err = np.linalg.norm(np.asarray(fs.x_est[:2] - fs.x_true[:2]))
-        assert err < 0.5  # all particles ride the same noise-free orbit
-
-
 class TestShardedGraphAssembly:
     def test_matches_unsharded_iteration(self):
         """Edge-sharded GN iteration == single-device banded iteration."""
         import math
-        from tpuslam.models.scan_sensor import ScanConfig
-        from tpuslam.slam import (GraphConfig, graph_solve_banded,
+        from slamsim.models.scan_sensor import ScanConfig
+        from slamsim.slam import (GraphConfig, graph_solve_banded,
                                   make_large_scene, window_pairs)
-        from tpuslam.slam.large import (assemble_banded, build_edge_blocks,
+        from slamsim.slam.large import (assemble_banded, build_edge_blocks,
                                         cg_solve)
-        from tpuslam.core.angles import wrap_angle
-        from tpuslam.parallel import make_mesh, sharded_gn_iteration
+        from slamsim.core.angles import wrap_angle
+        from slamsim.parallel import make_mesh, sharded_gn_iteration
 
         cfg = GraphConfig(
             max_times=60, num_landmarks=12, exact_jacobians=True,
@@ -335,7 +102,7 @@ class TestShardedGraphAssembly:
                                            rel_odom=rel_odom))(po)
 
         # Unsharded single iteration.
-        from tpuslam.slam.large import add_odometry_chain
+        from slamsim.slam.large import add_odometry_chain
         blocks = build_edge_blocks(cfg, po, obs, el)
         h_band, bvec, kept = assemble_banded(cfg, blocks, el, 60, 15)
         h_band, bvec = add_odometry_chain(h_band, bvec, po, rel_odom,
@@ -353,11 +120,11 @@ class TestShardedBandedCg:
 
     def _system(self, t1=80, band=10, seed=5):
         import math
-        from tpuslam.core.angles import wrap_angle
-        from tpuslam.models.scan_sensor import ScanConfig
-        from tpuslam.slam import (GraphConfig, make_large_scene,
+        from slamsim.core.angles import wrap_angle
+        from slamsim.models.scan_sensor import ScanConfig
+        from slamsim.slam import (GraphConfig, make_large_scene,
                                   window_pairs)
-        from tpuslam.slam.large import (add_odometry_chain,
+        from slamsim.slam.large import (add_odometry_chain,
                                         assemble_banded, build_edge_blocks)
 
         cfg = GraphConfig(
@@ -377,8 +144,8 @@ class TestShardedBandedCg:
         return h_band, bvec
 
     def test_matches_single_device_cg(self):
-        from tpuslam.parallel import make_mesh, sharded_cg_solve
-        from tpuslam.slam.large import cg_solve
+        from slamsim.parallel import make_mesh, sharded_cg_solve
+        from slamsim.slam.large import cg_solve
 
         h_band, bvec = self._system()
         mesh = make_mesh()
@@ -390,8 +157,8 @@ class TestShardedBandedCg:
 
     def test_matvec_residual_is_small(self):
         """H x_solved ~= b through the single-device banded matvec."""
-        from tpuslam.parallel import make_mesh, sharded_cg_solve
-        from tpuslam.slam.large import banded_matvec
+        from slamsim.parallel import make_mesh, sharded_cg_solve
+        from slamsim.slam.large import banded_matvec
 
         h_band, bvec = self._system(seed=6)
         mesh = make_mesh()
@@ -403,8 +170,8 @@ class TestShardedBandedCg:
 
     def test_single_device_mesh(self):
         """n_dev = 1 degenerates to the local solver (zero halos)."""
-        from tpuslam.parallel import make_mesh, sharded_cg_solve
-        from tpuslam.slam.large import cg_solve
+        from slamsim.parallel import make_mesh, sharded_cg_solve
+        from slamsim.slam.large import cg_solve
 
         h_band, bvec = self._system(seed=7)
         mesh = make_mesh(n_rollout=1)
@@ -415,7 +182,7 @@ class TestShardedBandedCg:
                                    atol=1e-4)
 
     def test_shard_narrower_than_band_raises(self):
-        from tpuslam.parallel import make_mesh, sharded_cg_solve
+        from slamsim.parallel import make_mesh, sharded_cg_solve
 
         h_band, bvec = self._system(t1=16, band=4)  # ell=2 < band
         mesh = make_mesh()
@@ -425,11 +192,11 @@ class TestShardedBandedCg:
     def test_gn_iteration_with_sharded_solver(self):
         """Edge-sharded assembly + pose-sharded CG == replicated CG."""
         import math
-        from tpuslam.core.angles import wrap_angle
-        from tpuslam.models.scan_sensor import ScanConfig
-        from tpuslam.slam import (GraphConfig, make_large_scene,
+        from slamsim.core.angles import wrap_angle
+        from slamsim.models.scan_sensor import ScanConfig
+        from slamsim.slam import (GraphConfig, make_large_scene,
                                   window_pairs)
-        from tpuslam.parallel import make_mesh, sharded_gn_iteration
+        from slamsim.parallel import make_mesh, sharded_gn_iteration
 
         cfg = GraphConfig(
             max_times=64, num_landmarks=12, exact_jacobians=True,
@@ -457,11 +224,11 @@ class TestShardedGraphSolve:
     def test_full_solve_matches_single_device(self):
         """Multi-iteration edge-sharded solve == graph_solve_banded."""
         import math
-        from tpuslam.models.scan_sensor import ScanConfig
-        from tpuslam.slam import (GraphConfig, graph_solve_banded,
+        from slamsim.models.scan_sensor import ScanConfig
+        from slamsim.slam import (GraphConfig, graph_solve_banded,
                                   make_large_scene, window_pairs)
-        from tpuslam.core.angles import wrap_angle
-        from tpuslam.parallel import make_mesh, sharded_graph_solve
+        from slamsim.core.angles import wrap_angle
+        from slamsim.parallel import make_mesh, sharded_graph_solve
 
         noise = 0.2
         cfg = GraphConfig(
@@ -491,28 +258,27 @@ class TestShardedGraphSolve:
 class TestShardedFusedEkf:
     """Rollout-sharded whole-rollout EKF kernel (interpret mode)."""
 
-    def test_matches_single_device_noise_free(self):
-        from tpuslam.filters import EkfConfig
-        from tpuslam.ops import ekf_fused_rollout
-        from tpuslam.parallel import make_mesh, sharded_ekf_fused_sweep
+    @pytest.mark.parametrize("noise_on", [False, True])
+    def test_matches_single_device(self, noise_on):
+        """Noise keyed by global rollout index: the 8-device sweep equals
+        one call over the whole batch, rollout by rollout."""
+        from slamsim.filters import EkfConfig
+        from slamsim.ops import ekf_fused_rollout
+        from slamsim.parallel import make_mesh, sharded_ekf_fused_sweep
 
         cfg = EkfConfig()
         mesh = make_mesh(n_rollout=8, n_particle=1)
         final, err, rmse = jax.jit(lambda s: sharded_ekf_fused_sweep(
-            cfg, mesh, s, batch=32, n_steps=12, tile_b=4,
-            noise_on=False, interpret=True))(0)
-        f1, e1 = ekf_fused_rollout(cfg, 0, batch=4, n_steps=12, tile_b=4,
-                                   noise_on=False, interpret=True)
-        # Noise-free rollouts are identical on every device/lane.
-        np.testing.assert_allclose(np.asarray(final.x_hat[0]),
-                                   np.asarray(f1.x_hat[0]), atol=1e-6)
-        np.testing.assert_allclose(np.asarray(final.x_hat[31]),
-                                   np.asarray(f1.x_hat[0]), atol=1e-6)
-        np.testing.assert_allclose(np.asarray(err),
-                                   np.tile(np.asarray(e1), 8), atol=1e-6)
+            cfg, mesh, s, batch=32, n_steps=12, noise_on=noise_on,
+            interpret=True))(0)
+        f1, e1 = ekf_fused_rollout(cfg, 0, batch=32, n_steps=12,
+                                   noise_on=noise_on, interpret=True)
+        np.testing.assert_array_equal(np.asarray(final.x_hat),
+                                      np.asarray(f1.x_hat))
+        np.testing.assert_array_equal(np.asarray(err), np.asarray(e1))
         np.testing.assert_allclose(
-            float(rmse),
-            float(np.sqrt(np.asarray(e1).mean() / 12)), atol=1e-6)
+            float(rmse), float(np.sqrt(np.asarray(e1).mean() / 12)),
+            rtol=1e-6, atol=1e-7)
         assert final.x_hat.shape == (32, 3)
 
 
@@ -540,10 +306,10 @@ class TestShardedTridiag:
     @pytest.mark.parametrize("t1,band,s", [(128, 4, 8), (200, 3, 5),
                                            (97, 5, None)])
     def test_matches_single_device(self, rng, t1, band, s):
-        from tpuslam.parallel import make_mesh
-        from tpuslam.parallel.tridiag_shard import (
+        from slamsim.parallel import make_mesh
+        from slamsim.parallel.tridiag_shard import (
             sharded_banded_solve_tridiag_flat)
-        from tpuslam.slam.tridiag import banded_solve_tridiag_flat
+        from slamsim.slam.tridiag import banded_solve_tridiag_flat
 
         h_flat, b3 = self._flat_system(rng, t1, band)
         mesh = make_mesh()
@@ -554,10 +320,10 @@ class TestShardedTridiag:
                                    rtol=2e-3, atol=2e-4)
 
     def test_single_device_mesh(self, rng):
-        from tpuslam.parallel import make_mesh
-        from tpuslam.parallel.tridiag_shard import (
+        from slamsim.parallel import make_mesh
+        from slamsim.parallel.tridiag_shard import (
             sharded_banded_solve_tridiag_flat)
-        from tpuslam.slam.tridiag import banded_solve_tridiag_flat
+        from slamsim.slam.tridiag import banded_solve_tridiag_flat
 
         h_flat, b3 = self._flat_system(rng, 64, 4)
         mesh = make_mesh(n_rollout=1)
@@ -569,8 +335,8 @@ class TestShardedTridiag:
 
     def test_residual_small(self, rng):
         """H x ~= b through a dense reconstruction."""
-        from tpuslam.parallel import make_mesh
-        from tpuslam.parallel.tridiag_shard import (
+        from slamsim.parallel import make_mesh
+        from slamsim.parallel.tridiag_shard import (
             sharded_banded_solve_tridiag_flat)
 
         t1, band = 96, 3
@@ -596,11 +362,11 @@ class TestShardedTridiag:
         """Edge-sharded flat assembly + pose-sharded direct Thomas ==
         the replicated-CG iteration (same system, tight CG tol)."""
         import math
-        from tpuslam.core.angles import wrap_angle
-        from tpuslam.models.scan_sensor import ScanConfig
-        from tpuslam.slam import (GraphConfig, make_large_scene,
+        from slamsim.core.angles import wrap_angle
+        from slamsim.models.scan_sensor import ScanConfig
+        from slamsim.slam import (GraphConfig, make_large_scene,
                                   window_pairs)
-        from tpuslam.parallel import make_mesh, sharded_gn_iteration
+        from slamsim.parallel import make_mesh, sharded_gn_iteration
 
         t1 = 128  # 8 devices x 2 super-blocks of 8
         cfg = GraphConfig(
@@ -628,27 +394,27 @@ class TestShardedTridiag:
 
 
 class TestMultiSlice:
-    """Multi-slice (DCN) tier on a (2, 4) CPU mesh emulating 2 slices x
-    4 chips (SURVEY.md section 5, distributed row: psum over ICI within a
-    slice, DCN across slices)."""
+    """Two-level tier on a (2, 4) CPU mesh emulating 2 hosts x 4 devices
+    (SURVEY.md section 5, distributed row: psum within a host, then
+    across hosts)."""
 
     def test_make_multislice_mesh(self):
-        from tpuslam.parallel import SLICE_AXIS, make_multislice_mesh
+        from slamsim.parallel import SLICE_AXIS, make_multislice_mesh
 
         mesh = make_multislice_mesh(2, 4)
         assert mesh.shape[SLICE_AXIS] == 2
         assert mesh.shape["rollout"] == 4
 
     def test_init_distributed_noop_single_process(self):
-        from tpuslam.parallel import init_distributed
+        from slamsim.parallel import init_distributed
 
         assert init_distributed() is False  # no coordinator configured
 
     def test_ekf_sweep_matches_flat_mesh(self):
         """2-slice hierarchical sweep == 1-D 8-device sweep (same keys:
         sharding layout must not change the math)."""
-        from tpuslam.filters import EkfConfig
-        from tpuslam.parallel import (SLICE_AXIS, make_mesh,
+        from slamsim.filters import EkfConfig
+        from slamsim.parallel import (SLICE_AXIS, make_mesh,
                                       make_multislice_mesh,
                                       sharded_ekf_sweep)
 
@@ -665,14 +431,14 @@ class TestMultiSlice:
         np.testing.assert_allclose(float(r1), float(r2), rtol=1e-6)
 
     def test_fused_sweep_two_slices(self):
-        from tpuslam.filters import EkfConfig
-        from tpuslam.parallel import (SLICE_AXIS, make_multislice_mesh,
+        from slamsim.filters import EkfConfig
+        from slamsim.parallel import (SLICE_AXIS, make_multislice_mesh,
                                       sharded_ekf_fused_sweep)
 
         cfg = EkfConfig()
         mesh = make_multislice_mesh(2, 4)
         final, err, rmse = jax.jit(lambda s: sharded_ekf_fused_sweep(
-            cfg, mesh, s, batch=16, n_steps=4, tile_b=2,
+            cfg, mesh, s, batch=16, n_steps=4,
             noise_on=False, interpret=True,
             slice_axis=SLICE_AXIS))(0)
         assert final.x_hat.shape == (16, 3)
@@ -683,11 +449,11 @@ class TestMultiSlice:
         psum == the 1-D mesh result (exact: integer scatter targets,
         f32 sums reassociated only across identical partials)."""
         import math
-        from tpuslam.core.angles import wrap_angle
-        from tpuslam.models.scan_sensor import ScanConfig
-        from tpuslam.slam import (GraphConfig, make_large_scene,
+        from slamsim.core.angles import wrap_angle
+        from slamsim.models.scan_sensor import ScanConfig
+        from slamsim.slam import (GraphConfig, make_large_scene,
                                   window_pairs)
-        from tpuslam.parallel import (SLICE_AXIS, make_mesh,
+        from slamsim.parallel import (SLICE_AXIS, make_mesh,
                                       make_multislice_mesh,
                                       sharded_gn_iteration)
 
@@ -721,11 +487,11 @@ class TestMultiSlice:
     def test_gn_sharded_tridiag_two_slices(self):
         """Hierarchical assembly + within-slice pose-sharded Thomas."""
         import math
-        from tpuslam.core.angles import wrap_angle
-        from tpuslam.models.scan_sensor import ScanConfig
-        from tpuslam.slam import (GraphConfig, make_large_scene,
+        from slamsim.core.angles import wrap_angle
+        from slamsim.models.scan_sensor import ScanConfig
+        from slamsim.slam import (GraphConfig, make_large_scene,
                                   window_pairs)
-        from tpuslam.parallel import (SLICE_AXIS, make_mesh,
+        from slamsim.parallel import (SLICE_AXIS, make_mesh,
                                       make_multislice_mesh,
                                       sharded_gn_iteration)
 
@@ -755,51 +521,6 @@ class TestMultiSlice:
                                    rtol=2e-4, atol=5e-3)
 
 
-class TestShardedPfBatchSweep:
-    """Filter-data-parallel batched PF kernels under the rollout mesh."""
-
-    def test_single_device_matches_direct_rollout(self):
-        """On a 1-device mesh the sweep must equal the direct local
-        rollout bit-for-bit (same key fold, same seed range)."""
-        from tpuslam.ops.pf_batch_pallas import pf_batch_rollout
-        from tpuslam.parallel import sharded_pf_batch_sweep
-
-        cfg = PfConfig(num_particles=128, weight_mode="log",
-                       resample_method="hist")
-        mesh = make_mesh(n_rollout=1)
-        n_steps, batch, seed = 3, 4, 11
-        x_est, ess, rmse = jax.jit(lambda: sharded_pf_batch_sweep(
-            cfg, mesh, seed, batch=batch, n_steps=n_steps,
-            noise_on=False, interpret=True))()
-        key = jax.random.fold_in(jax.random.key(seed), 0)
-        _, outs = pf_batch_rollout(cfg, key, batch, n_steps,
-                                   noise_on=False, interpret=True, seed0=1)
-        np.testing.assert_array_equal(np.asarray(x_est),
-                                      np.asarray(outs.x_est))
-        np.testing.assert_array_equal(np.asarray(ess), np.asarray(outs.ess))
-
-    def test_eight_devices_one_tile_and_wide(self):
-        from tpuslam.parallel import sharded_pf_batch_sweep
-
-        mesh = make_mesh(n_rollout=8)
-        cfg = PfConfig(num_particles=128, weight_mode="log",
-                       resample_method="hist")
-        x_est, ess, rmse = jax.jit(lambda: sharded_pf_batch_sweep(
-            cfg, mesh, 3, batch=16, n_steps=3, noise_on=False,
-            interpret=True))()
-        assert x_est.shape == (3, 16, 3) and ess.shape == (3, 16)
-        assert np.isfinite(np.asarray(x_est)).all()
-        assert np.isfinite(float(rmse))
-
-        wcfg = PfConfig(num_particles=256, weight_mode="log",
-                        resample_method="merge")
-        wx, wess, wrmse = jax.jit(lambda: sharded_pf_batch_sweep(
-            wcfg, mesh, 4, batch=8, n_steps=2, wide=True, tile_n=128,
-            noise_on=False, interpret=True))()
-        assert wx.shape == (2, 8, 3)
-        assert np.isfinite(np.asarray(wx)).all()
-
-
 class TestShardedCheckpoint:
     """Sharded-state checkpoint round-trip (SURVEY.md section 5,
     checkpoint row): Orbax must save and restore NamedSharding-placed
@@ -810,9 +531,9 @@ class TestShardedCheckpoint:
 
     def test_pf_particle_sharded_roundtrip(self, tmp_path):
         from jax.sharding import NamedSharding, PartitionSpec as P
-        from tpuslam.parallel.mesh import PARTICLE_AXIS
-        from tpuslam.utils.checkpoint import restore_state, save_state
-        from tpuslam.filters.pf import PfState
+        from slamsim.parallel.mesh import PARTICLE_AXIS
+        from slamsim.utils.checkpoint import restore_state, save_state
+        from slamsim.filters.pf import PfState
 
         cfg = PfConfig(num_particles=800)
         mesh = make_mesh(n_rollout=1, n_particle=8)
@@ -835,9 +556,9 @@ class TestShardedCheckpoint:
 
     def test_ekf_rollout_sharded_roundtrip(self, tmp_path):
         from jax.sharding import NamedSharding, PartitionSpec as P
-        from tpuslam.filters import ekf_init
-        from tpuslam.parallel.mesh import ROLLOUT_AXIS
-        from tpuslam.utils.checkpoint import restore_state, save_state
+        from slamsim.filters import ekf_init
+        from slamsim.parallel.mesh import ROLLOUT_AXIS
+        from slamsim.utils.checkpoint import restore_state, save_state
 
         cfg = EkfConfig()
         mesh = make_mesh(n_rollout=8)

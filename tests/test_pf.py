@@ -7,7 +7,7 @@ import jax.numpy as jnp
 from scipy import stats
 
 import oracles
-from tpuslam.filters import (PfConfig, bivariate_normal_pdf,
+from slamsim.filters import (PfConfig, bivariate_normal_pdf,
                              effective_sample_size, pf_init,
                              pf_likelihood, pf_rollout, pf_step,
                              systematic_resample)
@@ -206,7 +206,7 @@ class TestBatchedRollouts:
     def test_pf_rollout_batch_matches_single(self):
         """Per-filter results of the vmapped sweep equal individual
         rollouts (the vmap'd cond-as-select must not change selection)."""
-        from tpuslam.filters import pf_rollout_batch
+        from slamsim.filters import pf_rollout_batch
 
         cfg = PfConfig(num_particles=64, weight_mode="log")
         keys = jax.random.split(jax.random.key(7), 4)
@@ -229,8 +229,7 @@ class TestQuantizedCum:
     @pytest.mark.parametrize("seed,scale", [(0, 1.0), (1, 10.0),
                                             (2, 40.0)])
     def test_monotone_and_exact_partition(self, seed, scale):
-        from tpuslam.filters.pf import quantized_cum
-        from tpuslam.ops.resample_pallas import slot_boundaries
+        from slamsim.filters.pf import quantized_cum, slot_boundaries
 
         rng = np.random.default_rng(seed)
         n = 4096
@@ -245,7 +244,7 @@ class TestQuantizedCum:
         assert float(total[0]) == cum[-1]
         # slot intervals partition [0, n): t non-decreasing, last == n
         t = np.asarray(slot_boundaries(
-            jnp.asarray(w, jnp.float32)[None], n, jnp.float32(0.37)))[0]
+            jnp.asarray(w, jnp.float32), n, jnp.float32(0.37)))
         assert (np.diff(t) >= 0).all()
         assert t[-1] == n
         tprev = np.r_[0, t[:-1]]

@@ -8,12 +8,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from tpuslam.core import robot_to_world, world_to_robot, wrap_angle
-from tpuslam.filters import EkfConfig, ekf_rollout
-from tpuslam.models.scan_sensor import ScanConfig
-from tpuslam.slam import (GraphConfig, SlamSceneConfig, simulate,
+from slamsim.core import robot_to_world, world_to_robot, wrap_angle
+from slamsim.filters import EkfConfig, ekf_rollout
+from slamsim.models.scan_sensor import ScanConfig
+from slamsim.slam import (GraphConfig, SlamSceneConfig, simulate,
                           upper_pairs)
-from tpuslam.slam.graph import assemble, build_edges, kept_times
+from slamsim.slam.graph import assemble, build_edges, kept_times
 
 
 class TestSe2Properties:
@@ -77,138 +77,75 @@ class TestGraphInvariants:
 
 
 class TestResampleInvariants:
-    """Systematic-resample structural properties (any weights)."""
+    """Systematic-resample structural properties of the interval decode
+    (``resample_indices(method="hist")``), for any weights."""
+
+    @staticmethod
+    def _hist(w, offs):
+        from slamsim.filters.pf import resample_indices_from_offs
+
+        return np.asarray(resample_indices_from_offs(
+            jnp.float32(offs), jnp.asarray(w, jnp.float32), "hist"))
 
     @pytest.mark.parametrize("seed,scale", [(0, 0.1), (1, 3.0), (2, 8.0)])
-    def test_merge_output_counts_equal_slot_intervals(self, seed, scale):
-        """Each particle appears in the merge-kernel output exactly
-        t_j - t_{j-1} times (its slot-interval length), and the output
-        is a permutation-free expansion totaling n."""
-        from tpuslam.ops import merge_resample_rows
-        from tpuslam.ops.resample_pallas import slot_boundaries
+    def test_output_counts_equal_slot_intervals(self, seed, scale):
+        """Each particle appears in the output exactly t_j - t_{j-1}
+        times (its slot-interval length); the counts total n."""
+        from slamsim.filters.pf import resample_indices, slot_boundaries
 
         rng = np.random.default_rng(seed)
-        n = n_pad = 512
+        n = 512
         lw = rng.normal(size=n) * scale
         w = np.exp(lw - lw.max())
         w /= w.sum()
-        w_row = jnp.asarray(w, jnp.float32)[None, :]
-        # Distinct particle values so counts are identifiable.
-        p = jnp.asarray(
-            np.stack([np.arange(n), np.arange(n) * 2.0,
-                      np.zeros(n)]), jnp.float32)
         key = jax.random.key(seed)
-        out = np.asarray(merge_resample_rows(
-            key, p, w_row, n, t_in=128, t_k=128, t_out=128, w_b=6,
-            interpret=True))
+        idx = np.asarray(resample_indices(key, jnp.asarray(w, jnp.float32),
+                                          method="hist"))
         offs = float(jax.random.uniform(key, dtype=jnp.float32))
-        t = np.asarray(slot_boundaries(w_row, n, jnp.float32(offs)))[0]
+        t = np.asarray(slot_boundaries(jnp.asarray(w, jnp.float32), n,
+                                       jnp.float32(offs)))
         tprev = np.r_[0, t[:-1]]
-        counts = np.bincount(out[0].astype(np.int64), minlength=n)
+        counts = np.bincount(idx, minlength=n)
         np.testing.assert_array_equal(counts, t - tprev)
         assert counts.sum() == n
 
     @pytest.mark.parametrize("seed,scale", [(5, 4.0), (6, 9.0)])
-    def test_batch_kernel_degenerate_weights_no_double_cover(self, seed,
-                                                             scale):
+    def test_degenerate_weights_no_double_cover(self, seed, scale):
         """Continuous degenerate log-weights (the regime that fires the
-        gate): every output slot must be covered by EXACTLY one
-        particle.  Guards the quantized-exact cumsum - an unquantized
-        f32 split-matmul cumsum can invert an interval and silently SUM
-        two particles into one slot."""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops import pf_batch_init, pf_batch_step
-
-        n, b = 256, 2
-        cfg = PfConfig(num_particles=n, weight_mode="log",
-                       ess_threshold_frac=2.0,  # always fire
-                       q_std=(0.0, 0.0, 0.0))
+        gate): every output slot is covered by exactly one particle, in
+        the exact quantized-integer intervals.  Guards the quantized
+        cumsum - an unquantized f32 cumsum can invert an interval."""
+        n = 256
         rng = np.random.default_rng(seed)
         lw = rng.normal(size=n) * scale
-        st = pf_batch_init(cfg, b)
-        P = st.particles.shape[1] // b
-        p_rows = np.zeros((3, b * P), np.float32)
-        lw_rows = np.full((1, b * P), -np.inf, np.float32)
-        for f in range(b):
-            p_rows[0, f * P:f * P + n] = np.arange(n)  # marker = index
-            lw_rows[0, f * P:f * P + n] = lw
-        from tpuslam.ops.pf_batch_pallas import pf_batch_refresh_stats
-        st = pf_batch_refresh_stats(cfg, st._replace(
-            particles=jnp.asarray(p_rows), log_w=jnp.asarray(lw_rows)))
-        st2, out = pf_batch_step(cfg, st, jax.random.key(seed), 0,
-                                 noise_on=False, interpret=True)
-        assert bool(out.resampled.all())
-
-        # Exact quantized-integer oracle (mirrors the kernel: integer
-        # cumsum, f32 division/scale/ceil, offs = 0.5 noise-free).
-        m = lw.max()
-        w = np.exp((lw - m) - np.log(np.exp(lw - m).sum()))
-        wq = np.round(np.float32(w * np.float32(1 << 20))).astype(
-            np.int64)
+        w = np.exp(lw - lw.max())
+        w /= w.sum()
+        idx = self._hist(w, 0.5)
+        # One particle per slot, in order: a double-covered slot would
+        # show as a decrease.
+        assert idx.shape == (n,) and (np.diff(idx) >= 0).all()
+        # Exact quantized-integer oracle: integer cumsum, f32 scale and
+        # ceil, offs = 0.5.
+        wq = np.round(np.float32(w) * np.float32(1 << 20)
+                      / np.float32(np.float32(w).sum())).astype(np.int64)
         cum = np.cumsum(wq)
-        q = cum[-1]
-        t = np.clip(np.ceil(np.float32(n) * (
-            cum.astype(np.float32) / np.float32(q))
-            - np.float32(0.5)), 0, n).astype(np.int64)
+        inv = np.float32(1.0) / np.float32(cum[-1])
+        t = np.clip(np.ceil(np.float32(n) * (cum.astype(np.float32) * inv)
+                            - np.float32(0.5)), 0, n).astype(np.int64)
         t[-1] = n
-        tprev = np.r_[0, t[:-1]]
-        expect = t - tprev
-        for f in range(b):
-            got = np.asarray(st2.particles[0, f * P:f * P + n])
-            delta = got - np.round(got)
-            marker = np.round(got - np.median(delta)).astype(int)
-            # no double-covered slot: all markers are valid indices and
-            # counts match the oracle intervals exactly
-            assert ((marker >= 0) & (marker < n)).all()
-            counts = np.bincount(marker, minlength=n)[:n]
-            np.testing.assert_array_equal(counts, expect)
-            assert counts.sum() == n
+        expect = t - np.r_[0, t[:-1]]
+        np.testing.assert_array_equal(np.bincount(idx, minlength=n), expect)
 
-    def test_batch_kernel_resample_counts(self):
-        """In-tile batched resample: with exact-binary weights the
-        output counts equal the slot intervals per filter."""
-        from tpuslam.filters.pf import PfConfig
-        from tpuslam.ops import pf_batch_init, pf_batch_step
-
-        n, b = 128, 2
-        cfg = PfConfig(num_particles=n, weight_mode="log",
-                       ess_threshold_frac=2.0,  # always fire
-                       q_std=(0.0, 0.0, 0.0))   # keep markers intact
+    def test_exact_binary_weights_counts(self):
+        """Exact binary-fraction weights give deterministic slot counts."""
+        n = 128
         heavy = {3: 1 / 4, 60: 1 / 4, 100: 1 / 2}
-        lw = np.full(n, -np.inf)
-        for h, wv in heavy.items():
-            lw[h] = np.log(wv)
-        st = pf_batch_init(cfg, b)
-        P = st.particles.shape[1] // b
-        p_rows = np.zeros((3, b * P), np.float32)
-        lw_rows = np.full((1, b * P), -np.inf, np.float32)
-        for f in range(b):
-            p_rows[0, f * P:f * P + n] = np.arange(n)  # marker = index
-            lw_rows[0, f * P:f * P + n] = lw
-        from tpuslam.ops.pf_batch_pallas import pf_batch_refresh_stats
-        st = pf_batch_refresh_stats(cfg, st._replace(
-            particles=jnp.asarray(p_rows), log_w=jnp.asarray(lw_rows)))
-        st2, out = pf_batch_step(cfg, st, jax.random.key(1), 0,
-                                 noise_on=False, interpret=True)
-        assert bool(out.resampled.all())
-        # offs = 0.5 in noise-free mode; weights are exact binary
-        # fractions -> deterministic slot counts.
         w = np.zeros(n)
         for h, wv in heavy.items():
             w[h] = wv
+        idx = self._hist(w, 0.5)
         t = np.clip(np.ceil(n * np.cumsum(w) - 0.5), 0, n)
         t[-1] = n
-        tprev = np.r_[0, t[:-1]]
-        expect = (t - tprev).astype(int)
-        for f in range(b):
-            # x moved by the deterministic circular step: undo via
-            # rounding to the nearest marker (v*dt*cos(yaw) shift is
-            # identical for all particles - yaw isn't a marker here).
-            got = np.asarray(st2.particles[0, f * P:f * P + n])
-            shift = got.min() - 0.0  # particle 0 never survives; use mod
-            # recover marker by subtracting the common motion delta
-            delta = got - np.round(got)
-            # all deltas identical (same yaw=pi/2 step for all)
-            marker = np.round(got - np.median(delta)).astype(int)
-            counts = np.bincount(marker, minlength=n)[:n]
-            np.testing.assert_array_equal(counts, expect)
+        expect = (t - np.r_[0, t[:-1]]).astype(int)
+        np.testing.assert_array_equal(np.bincount(idx, minlength=n), expect)
+        assert set(np.unique(idx)) == set(heavy)

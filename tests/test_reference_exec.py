@@ -1,13 +1,13 @@
 """Differential validation against the LIVE reference code.
 
-Every other parity test in this suite compares tpuslam against the float64
+Every other parity test in this suite compares slamsim against the float64
 NumPy oracles in tests/oracles.py - hand re-derivations of the reference
 algorithms.  A mis-derivation would make the oracle and the implementation
 wrong in the same way and those tests would still pass.  This file closes
 that loop: it imports and EXECUTES the modules under ``/root/reference``
 (shimming the two removed third-party APIs they rely on), records every
 ``np.random`` draw they consume, replays the identical draws into the
-tpuslam implementations under float64, and asserts the trajectories agree.
+slamsim implementations under float64, and asserts the trajectories agree.
 
 Shims (nothing in the reference's own code is altered):
   * ``matplotlib.mlab.bivariate_normal`` - removed from matplotlib >= 3.1;
@@ -108,7 +108,7 @@ def x64():
 
 class NoiseTap:
     """Replaces ``np.random.*`` with a private seeded stream, recording
-    every draw so it can be replayed into the tpuslam implementations."""
+    every draw so it can be replayed into the slamsim implementations."""
 
     def __init__(self, seed):
         self.rs = np.random.RandomState(seed)
@@ -173,7 +173,7 @@ class TestEkfAgainstLiveReference:
         return outs, draws
 
     def test_trajectory_matches(self, ref, monkeypatch, x64):
-        from tpuslam.filters import EkfConfig, ekf_init, ekf_step_with_noise
+        from slamsim.filters import EkfConfig, ekf_init, ekf_step_with_noise
 
         outs, draws = self._run_reference(ref, monkeypatch)
         cfg = EkfConfig()
@@ -226,7 +226,7 @@ class TestEkfAgainstLiveReference:
 class TestModelsAgainstLiveReference:
 
     def test_motion_model_matches(self, ref, monkeypatch, x64):
-        from tpuslam.models import MotionConfig, motion_mean, \
+        from slamsim.models import MotionConfig, motion_mean, \
             motion_sample_with_noise
 
         tap = NoiseTap(7)
@@ -257,7 +257,7 @@ class TestModelsAgainstLiveReference:
             pose = np.asarray(ref_noisy)
 
     def test_scan_sensor_matches(self, ref, monkeypatch, x64):
-        from tpuslam.models import ScanConfig, scan_apply_noise, scan_true
+        from slamsim.models import ScanConfig, scan_apply_noise, scan_true
 
         tap = NoiseTap(11)
         tap.install(monkeypatch)
@@ -323,7 +323,7 @@ class TestPfAgainstLiveReference:
     N_STEPS = 60
 
     def test_trajectory_matches(self, ref, monkeypatch, x64):
-        from tpuslam.filters import PfConfig, pf_init, pf_step_with_noise
+        from slamsim.filters import PfConfig, pf_init, pf_step_with_noise
 
         tap = NoiseTap(5)
         tap.install(monkeypatch)
@@ -380,13 +380,13 @@ class TestPfAgainstLiveReference:
 class TestMylibAgainstLiveReference:
     """Direct differential tests of the one reference package that the
     replay tests above import but never execute: ``mylib``.  Random inputs
-    through the LIVE classes/functions vs the tpuslam twins, float64."""
+    through the LIVE classes/functions vs the slamsim twins, float64."""
 
     def test_chi2_table_matches_reference_grid(self, ref, x64):
         """Our closed-form-regenerated chi-squared grid must equal the
         reference's hardcoded 43-entry table (error_ellipse.py:24-36) to
         its printed precision, and the interpolant must agree everywhere."""
-        from tpuslam.core.chi2 import CHI2_GRID, P_GRID, chi2_ppf_2dof_table
+        from slamsim.core.chi2 import CHI2_GRID, P_GRID, chi2_ppf_2dof_table
 
         ee = ref.error_ellipse.ErrorEllipse(99.0)
         np.testing.assert_allclose(np.asarray(CHI2_GRID), ee.square_x,
@@ -409,7 +409,7 @@ class TestMylibAgainstLiveReference:
         convention-dependent (LAPACK vs XLA may negate), and an ellipse at
         ang and ang+pi is the same ellipse (the reference only feeds it to
         matplotlib's patch angle)."""
-        from tpuslam.core.ellipse import error_ellipse, major_axis_length
+        from slamsim.core.ellipse import error_ellipse, major_axis_length
 
         rng = np.random.RandomState(3)
         for p in (99.9, 99.0, 95.0, 80.0, 42.5, 7.3):
@@ -438,7 +438,7 @@ class TestMylibAgainstLiveReference:
                     err_msg=f"calc_chi p2={p2}")
 
     def test_limit_angle_matches(self, ref, x64):
-        from tpuslam.core.angles import wrap_angle
+        from slamsim.core.angles import wrap_angle
 
         rng = np.random.RandomState(5)
         angles = np.concatenate([
@@ -452,7 +452,7 @@ class TestMylibAgainstLiveReference:
                                        atol=1e-12, err_msg=f"angle {a}")
 
     def test_transform_matches(self, ref, x64):
-        from tpuslam.core.se2 import robot_to_world, world_to_robot
+        from slamsim.core.se2 import robot_to_world, world_to_robot
 
         rng = np.random.RandomState(9)
         for _ in range(8):
@@ -481,11 +481,11 @@ class TestGraphSlamAgainstLiveReference:
 
     def test_course_matches_fast(self, ref, x64):
         """6-frame prefix of the same course - runs in the smoke tier so
-        CI always gates on live graph parity (VERDICT r3 item 5b)."""
+        CI always gates on live graph parity."""
         self._run_course(ref, 6)
 
     def _run_course(self, ref, n_frames):
-        from tpuslam.slam.graph import (GraphConfig, GraphObservations,
+        from slamsim.slam.graph import (GraphConfig, GraphObservations,
                                         graph_solve)
 
         gbs = ref.gbs

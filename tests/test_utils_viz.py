@@ -11,10 +11,10 @@ import matplotlib
 
 matplotlib.use("Agg")
 
-from tpuslam.filters import EkfConfig, PfConfig, ekf_init, ekf_step, \
+from slamsim.filters import EkfConfig, PfConfig, ekf_init, ekf_step, \
     pf_init
-from tpuslam.sim import rollout, rollout_batch
-from tpuslam.utils import restore_state, save_state, steps_per_second, \
+from slamsim.sim import rollout, rollout_batch
+from slamsim.utils import restore_state, save_state, steps_per_second, \
     timed
 
 
@@ -50,6 +50,21 @@ class TestProfiling:
         assert steps_per_second(f, x, work_items=128, reps=3) > 0
 
 
+class TestRoofline:
+    def test_unknown_device_raises(self):
+        from slamsim.utils import roofline
+
+        with pytest.raises(KeyError, match="no published peaks"):
+            roofline.peaks("cpu")
+
+    def test_h100_entry(self):
+        from slamsim.utils import roofline
+
+        p = roofline.peaks("NVIDIA H100 80GB HBM3")
+        assert p.hbm_bytes == 3.35e12 and p.flops_bf16 == 989e12
+        assert "data sheet" in p.source
+
+
 class TestSimDriver:
     def test_rollout_matches_manual_loop(self):
         """Generic rollout == manually iterating the step with the same
@@ -77,14 +92,14 @@ class TestVizDemos:
     """Headless smoke tests: each demo renders and saves a PNG."""
 
     def test_demo_ekf(self, tmp_path):
-        from tpuslam.viz import demo_ekf
+        from slamsim.viz import demo_ekf
 
         out = os.path.join(tmp_path, "ekf.png")
         demo_ekf.main(["--frames", "10", "--save", out])
         assert os.path.getsize(out) > 1000
 
     def test_demo_pf(self, tmp_path):
-        from tpuslam.viz import demo_pf
+        from slamsim.viz import demo_pf
 
         out = os.path.join(tmp_path, "pf.png")
         demo_pf.main(["--frames", "5", "--particles", "100", "--save", out])
@@ -92,28 +107,28 @@ class TestVizDemos:
 
     @pytest.mark.slow
     def test_demo_graph_slam(self, tmp_path):
-        from tpuslam.viz import demo_graph_slam
+        from slamsim.viz import demo_graph_slam
 
         out = os.path.join(tmp_path, "slam.png")
         demo_graph_slam.main(["--frames", "5", "--save", out])
         assert os.path.getsize(out) > 1000
 
     def test_demo_motion(self, tmp_path):
-        from tpuslam.viz import demo_motion
+        from slamsim.viz import demo_motion
 
         out = os.path.join(tmp_path, "motion.png")
         demo_motion.main(["--samples", "50", "--save", out])
         assert os.path.getsize(out) > 1000
 
     def test_demo_transform(self, tmp_path):
-        from tpuslam.viz import demo_transform
+        from slamsim.viz import demo_transform
 
         out = os.path.join(tmp_path, "tf.png")
         demo_transform.main(["--save", out])
         assert os.path.getsize(out) > 1000
 
     def test_demo_ellipse(self, tmp_path):
-        from tpuslam.viz import demo_ellipse
+        from slamsim.viz import demo_ellipse
 
         out = os.path.join(tmp_path, "ell.png")
         demo_ellipse.main(["--save", out])
@@ -122,7 +137,7 @@ class TestVizDemos:
 
 class TestProfilerTrace:
     def test_trace_context(self, tmp_path):
-        from tpuslam.utils import trace
+        from slamsim.utils import trace
 
         f = jax.jit(lambda x: x * 2 + 1)
         with trace(str(tmp_path / "prof")):
@@ -133,7 +148,7 @@ class TestProfilerTrace:
 
     @pytest.mark.slow
     def test_demo_large_slam(self, tmp_path):
-        from tpuslam.viz import demo_large_slam
+        from slamsim.viz import demo_large_slam
 
         out = os.path.join(tmp_path, "large.png")
         demo_large_slam.main(["--poses", "60", "--landmarks", "12",
